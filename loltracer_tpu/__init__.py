@@ -1,4 +1,4 @@
-"""loltracer-tpu: a TPU-native differentiable sphere-tracing framework.
+"""loltracer: a differentiable sphere-tracing framework for NVIDIA GPUs.
 
 Reproduces the capabilities of the reference `loltracer` (an interactive
 C11/SSE CPU ray-marcher with a DynASM x64 scene JIT) as an idiomatic
@@ -10,7 +10,7 @@ JAX/XLA/Pallas framework:
   XLA replaces the reference's runtime x64 code generation,
 - rendering is a vectorized sphere-trace (`loltracer_tpu.render`) with
   soft shadows, tetrahedron normals and Blinn-Phong shading, forward and
-  backward, with Pallas TPU kernels on the hot path,
+  backward, with Pallas-on-Triton kernels for the two marches,
 - images shard over device meshes (`loltracer_tpu.parallel`),
 - inverse rendering recovers scene parameters from images
   (`loltracer_tpu.opt`).

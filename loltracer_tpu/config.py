@@ -49,27 +49,13 @@ class RenderConfig:
     # (naive_renderer.c:183). True reproduces the reference.
     atan_fov: bool = True
 
-    # Tile shape for the compiled-tier Pallas kernels (None = auto).
-    # Auto resolves to 64x128 on hardware and 8x128 under the interpreter:
-    # values are tile-shape-INDEPENDENT (done lanes freeze individually),
-    # but the march/shadow loops pay a serial scalar-control cost per loop
-    # iteration per tile, so fewer/bigger tiles win despite more worst-
-    # lane masked steps — measured on v5e (scene4 @1080p fwdbwd: 18.9M at
-    # 8x128 -> 31.0M at 64x128; 128x128 exceeds the backward kernel's
-    # VMEM). The height dimension is capped to the (padded) image/shard
-    # height. Lane dim must stay a multiple of 128. Set explicitly for
-    # exotic scenes (many lights -> more residual planes -> smaller tiles
-    # to fit VMEM).
-    tile_h: int = None
-    tile_w: int = None
-
-    # March backend for the differentiable render path's (stop-gradient'd)
-    # sphere-trace: "auto" uses the fused Pallas kernel on TPU and the jnp
-    # while_loop elsewhere; "jnp" / "pallas" force one;
-    # "pallas-interpret" runs the kernel in the Pallas interpreter (CPU
-    # equivalence tests). Gradients are identical across backends — the
-    # march result is frozen and re-attached via the IFT either way
-    # (render/march.py).
+    # March backend for the (frozen) value passes of the differentiable
+    # render path, the primary march and the envelope shadow march
+    # (render/backend.py): "auto" = the Triton kernels on a GPU and the jnp
+    # loops elsewhere; "jnp" / "triton" force one; "triton-interpret" runs
+    # the kernels in the Pallas interpreter (CPU tests). Gradients are the
+    # same across backends: the march results are frozen and re-attached
+    # in jnp either way (render/march.py).
     march_backend: str = "auto"
 
     # Soft-shadow gradient estimator:
@@ -78,9 +64,9 @@ class RenderConfig:
     #                discretized forward computation (trajectory terms
     #                included). Backward cost: O(shadow_steps) SDF
     #                evaluations per light per pixel.
-    #   "envelope" — the shadow march runs frozen (stop-gradient, Pallas
-    #                kernel on TPU) recording the argmin step t*; the
-    #                gradient is re-attached via ONE differentiable SDF
+    #   "envelope" — the shadow march runs frozen (stop-gradient; the
+    #                Triton kernel on a GPU) recording the argmin step t*;
+    #                the gradient is re-attached via ONE differentiable SDF
     #                evaluation at t* per light. By Danskin's theorem this
     #                is the exact gradient of the idealized penumbra
     #                min(1, min_t w·f(ro+t·rd)/t) — the same
@@ -90,75 +76,34 @@ class RenderConfig:
     #                from O(steps) to O(1) SDF evals.
     shadow_grad: str = "exact"
 
-    # Shadow scratch gather (instanced Pallas tier, step-clamped mode
-    # only): before each per-light shadow march, the micro-blocks within
-    # (step clamp + bound radius) of the patch's swept shadow segment are
-    # gathered ONCE into a compact VMEM scratch table, and the march
-    # evaluates that table directly — no per-step eligibility pass or
-    # best-first pick loop. Value-EXACT under the clamp: a sphere farther
-    # than the clamp from an eval point can never win min(d, cut) (cut =
-    # max(clamp, d_bbox) and d_bbox lower-bounds every sphere distance),
-    # so the gathered set provably contains every sphere that can affect
-    # any sampled value. Patches whose gather would overflow the scratch
-    # fall back to the full traversal (lax.cond). The PRIMARY march uses
-    # the same gather over the patch's view-frustum segments. Rows of
-    # scratch capacity (multiple of 256); 0 disables. 8192 rows (256 KB
-    # VMEM) measured best at the 10k/1080p config (4096: -2%, 2048: -15%
-    # from overflow fallbacks).
-    shadow_scratch: int = 8192
-
-    # Moving chunk window over the scratch table (r5): blocks are gathered
-    # in projection order along the row's mean ray and each march step
-    # evaluates only the 256-row chunks whose projection interval overlaps
-    # the live lanes' span +/- the clamp (pallas_scene.ScratchScene).
-    # Value-exact by the same clamp-completeness argument as the gather
-    # (projection is 1-Lipschitz, so the interval test is conservative
-    # for every lane). The diagnosis that motivated it: a shadow
-    # segment sweeps tens of units through the field, so the GATHERED set
-    # stays at 800-1900 rows (3-8 chunks) however coherent the rays are —
-    # but each individual step only ever needs the chunk(s) around the
-    # current points. Off exists for A/B measurement.
-    scratch_window: bool = True
-
-    # Shadow-march segment culling (instanced Pallas tier): before each
-    # per-light shadow march, a conservative segment-vs-block bound
-    # (pallas_scene.InstancedScene.segment_lit) marks rays whose penumbra
-    # value provably stays > 1 along the whole ray; those lanes start the
-    # march pre-done with res = 1.0 / t_star = 0 — bitwise what the march
-    # would have produced — and fully-lit patches skip the 128-step loop
-    # entirely. Value-exact (the bound is one-sided), so this is purely a
-    # speed knob; off exists for A/B measurement.
-    shadow_cull: bool = True
-
     # Step clamp for INSTANCED scenes (None = exact full SDF): the march
     # evaluates the step-clamped scene distance min(d, step_clamp) instead
     # of d. Semantically simple (one extra min, reproduced identically by
-    # the jnp/banded oracle paths and the Pallas traversal) and
-    # conservative: steps never overshoot, hits land on the same surfaces
-    # within epsilon, and every quantity that consumes small distances —
-    # hit detection, penumbra minima (w*d/t < 1 requires d << clamp),
+    # the unbanded and banded jnp paths) and conservative: steps never
+    # overshoot, hits land on the same surfaces within epsilon, and every
+    # quantity that consumes small distances — hit detection, penumbra minima (w*d/t < 1 requires d << clamp),
     # normal taps, coverage alpha (s ~ pixel_rad) — sits in the d <
     # step_clamp regime where the value is EXACT. What changes is only the
     # free-space step SIZE (clamped to step_clamp), i.e. more, shorter
-    # steps across empty space. The payoff on TPU: the traversal's
-    # candidate ball shrinks from (scene-dependent upper bound + block
-    # radius) to (step_clamp + block radius), cutting window evaluations
-    # several-fold (render/pallas_scene.py InstancedScene). Ignored for
-    # compiled (non-instanced) structures.
+    # steps across empty space. What it buys: a spatial structure only has
+    # to search a ball of radius step_clamp around each point, because a
+    # sphere farther away can never win min(d, cut) (cut = max(clamp,
+    # d_bbox), render/sdf.py). Ignored for compiled (non-instanced)
+    # structures.
     step_clamp: float = None
 
     # Separate step clamp for the per-light SHADOW marches of instanced
     # scenes (None = follow step_clamp). The primary march wants a small
-    # clamp (it sets the traversal's candidate-ball radius, see above);
+    # clamp (it sets the search radius, see above);
     # shadow marches are LONGER (up to the light distance) and their
     # penumbra values only need exact distances below light_dist/shadow_w
     # (val = w*d/t < 1 requires d < t/w <= light_dist/w, ~2 units at
     # w = 50), so they tolerate a much larger clamp — fewer, bigger steps
     # across the same field. Like step_clamp this is a documented
-    # semantics knob reproduced identically by the jnp oracle path and the
-    # fused kernels (penumbra res/t* depend on the sampled trajectory
-    # either way); values below 1 are unchanged whenever
-    # shadow-march t stays <= shadow_w * min(step_clamp, shadow_step_clamp).
+    # semantics knob reproduced identically by every jnp path (penumbra
+    # res/t* depend on the sampled trajectory either way); values below 1
+    # are unchanged whenever shadow-march t stays <= shadow_w *
+    # min(step_clamp, shadow_step_clamp).
     shadow_step_clamp: float = None
 
     def effective_shadow_clamp(self):
@@ -170,6 +115,12 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+    def for_forward(self) -> "RenderConfig":
+        """The config for a render whose gradient is never taken: envelope
+        shadows, whose frozen shadow march can run as the Triton kernel.
+        On the jnp loops the image is bitwise that of "exact"."""
+        return self.replace(shadow_grad="envelope")
 
 
 DEFAULT_CONFIG = RenderConfig()

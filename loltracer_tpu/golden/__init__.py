@@ -1,4 +1,4 @@
-"""Float64 reference tracer: the correctness oracle for the TPU renderers."""
+"""Float64 reference tracer: the correctness oracle for the JAX renderers."""
 
 from loltracer_tpu.golden.tracer import (
     render_golden,

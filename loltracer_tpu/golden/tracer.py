@@ -2,7 +2,7 @@
 
 A deliberately scalar, per-pixel transliteration of the *semantics* of the
 reference's naive backend (naive_renderer.c), used as the allclose/gradcheck
-oracle for the vectorized JAX/Pallas renderers. It reproduces the reference's
+oracle for the vectorized JAX renderers and kernels. It reproduces the reference's
 behavioral quirks on purpose (SURVEY.md §2.1):
 
 - pinhole half-height is atan(fov/2), not tan (naive_renderer.c:183),
@@ -345,13 +345,30 @@ def _scene_sdf_vec(scene: Scene, p: np.ndarray):
     params = scene.params
 
     if scene.structure.instanced:
-        # instanced scenes: all spheres (SoA order) then planes
-        d = p[..., None, :] - params.sphere_point
-        dist = np.sqrt(np.sum(d * d, axis=-1)) - params.sphere_radius
+        # instanced scenes: all spheres (SoA order) then planes, scanned in
+        # chunks of spheres to bound memory; a later chunk wins only when
+        # strictly closer, which keeps np.argmin's first-wins rule
+        chunk = 1024
+        cols = [(params.sphere_point[i:i + chunk],
+                 params.sphere_radius[i:i + chunk], i)
+                for i in range(0, len(params.sphere_radius), chunk)]
+        dmin = np.full(p.shape[:-1], np.inf)
+        imin = np.zeros(p.shape[:-1], dtype=np.int64)
+        for pos, rad, off in cols:
+            d = p[..., None, :] - pos
+            dist = np.sqrt(np.sum(d * d, axis=-1)) - rad
+            bd, bi = np.min(dist, axis=-1), np.argmin(dist, axis=-1) + off
+            closer = bd < dmin
+            dmin = np.where(closer, bd, dmin)
+            imin = np.where(closer, bi, imin)
         if scene.structure.num_planes:
             dpl = p[..., 1:2] - params.plane_y
-            dist = np.concatenate([dist, dpl], axis=-1)
-        return np.min(dist, axis=-1), np.argmin(dist, axis=-1) + 1
+            bd = np.min(dpl, axis=-1)
+            bi = np.argmin(dpl, axis=-1) + len(params.sphere_radius)
+            closer = bd < dmin
+            dmin = np.where(closer, bd, dmin)
+            imin = np.where(closer, bi, imin)
+        return dmin, imin + 1
 
     def node_dist(node: Node):
         kind = node[0]
@@ -478,11 +495,18 @@ def render_golden(
     width: int,
     height: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
+    window=None,
 ) -> np.ndarray:
-    """Render the full image (vectorized float64): [H, W, 3] in [0, 1]."""
+    """Render the full image (vectorized float64): [H, W, 3] in [0, 1].
+    `window=(y0, x0, h, w)` renders only that sub-window of the image,
+    [h, w, 3]."""
     params = scene.params
-    vx = ((np.arange(width) + 0.5) / width * 2.0 - 1.0)[None, :]
-    vy = (1.0 - (np.arange(height) + 0.5) / height * 2.0)[:, None]
+    xs, ys = np.arange(width), np.arange(height)
+    if window is not None:
+        y0, x0, wh, ww = window
+        xs, ys = xs[x0:x0 + ww], ys[y0:y0 + wh]
+    vx = ((xs + 0.5) / width * 2.0 - 1.0)[None, :]
+    vy = (1.0 - (ys + 0.5) / height * 2.0)[:, None]
     aspect = width / height
 
     up_guide = np.array([0.0, 1.0, 0.0])

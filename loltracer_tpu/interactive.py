@@ -117,29 +117,13 @@ def terminal_frame_size(term_size=None, reserve_lines: int = 2):
 
 
 def resolve_viewer_renderer(scene, height: int, width: int, cfg):
-    """The framework's production forward path at this size: the fused
-    Pallas renderer on TPU (compiled scenes via the forward-only fused
-    kernel, instanced via the windowed-traversal kernel), the jnp tier
-    elsewhere — the viewer demos the same kernels bench.py measures
-    (r4 verdict weak #7). Returns a jitted params -> [H, W, 3] fn."""
-    from loltracer_tpu.render.backend import resolve_march_backend
-
-    backend = resolve_march_backend(cfg.march_backend)
-    if backend == "pallas":
-        if scene.structure.instanced:
-            from loltracer_tpu.render.pallas_train import (
-                make_instanced_renderer,
-            )
-
-            return make_instanced_renderer(
-                scene.structure, height, width, cfg
-            )
-        from loltracer_tpu.render.pallas_renderer import make_pallas_renderer
-
-        return make_pallas_renderer(scene.structure, height, width, cfg)
+    """The production forward path at this size: `make_renderer`, whose
+    march backend follows cfg.march_backend (render/backend.py), with the
+    forward-only shadow estimator (RenderConfig.for_forward). Returns a
+    jitted params -> [H, W, 3] fn."""
     from loltracer_tpu.render.jnp_renderer import make_renderer
 
-    return make_renderer(scene.structure, height, width, cfg)
+    return make_renderer(scene.structure, height, width, cfg.for_forward())
 
 
 class SizeAdaptiveRenderer:

@@ -1,17 +1,17 @@
 """Multi-host bootstrap: jax.distributed wiring (SURVEY §4(d), §5.8).
 
 The reference parallelizes inside one process (SDL threads + semaphores,
-main.c:145-149); the TPU framework scales across hosts with
-`jax.distributed.initialize()` so `jax.devices()` spans the whole slice and
-row-sharded rendering + the scene-gradient psum ride ICI within a host and
-DCN across hosts.
+main.c:145-149); this framework scales across hosts with
+`jax.distributed.initialize()` so `jax.devices()` spans every host's cards
+and row-sharded rendering + the scene-gradient psum ride NVLink within a
+host and the network across hosts.
 
 `maybe_initialize()` is called by the CLI and the scaling benchmark. It is
 a no-op unless multi-process coordinates are provided, via either
 
-- the standard cloud auto-detection (LOLTRACE_DISTRIBUTED=1 makes us call
+- the cluster's own auto-detection (LOLTRACE_DISTRIBUTED=1 makes us call
   `jax.distributed.initialize()` bare, which resolves the coordinator from
-  the TPU metadata/environment on real pods), or
+  the environment a cluster launcher such as SLURM provides), or
 - explicit env vars for manual/loopback launches:
     LOLTRACE_COORDINATOR=host:port
     LOLTRACE_NUM_PROCESSES=N
@@ -67,7 +67,7 @@ def maybe_initialize() -> bool:
         )
         return True
     if os.environ.get("LOLTRACE_DISTRIBUTED") == "1":
-        jax.distributed.initialize()  # cloud auto-detection
+        jax.distributed.initialize()  # cluster auto-detection
         return True
     return False
 

@@ -4,8 +4,8 @@ For 10k+ primitive scenes the scene SDF is an argmin-reduction over the
 sphere SoA; this module shards that OBJECT axis across a mesh axis the way
 tensor parallelism shards a contraction: every device evaluates the
 distance min over its local sphere shard and the partial results combine
-with a `lax.pmin` (ids via a min-over-winners trick) inside the march —
-the TPU-native analog the blueprint names for the 4K multi-host config.
+with a `lax.pmin` (ids via a min-over-winners trick) inside the march.
+It pays only when a scene outgrows one device.
 
 Composition: rows can shard over one mesh axis and objects over another
 (a (rows, objects) 2-D mesh); forward pixel work is then row-parallel
@@ -136,7 +136,7 @@ def _sharded_sdfs(structure: SceneStructure, cfg: RenderConfig,
         # step_clamp (sdf.py make_scene_sdf_with_id), and testing the
         # clamped values would tie EVERY shard at d_loc == cut wherever the
         # cut wins, silently replacing the global argmin id with a
-        # min-over-local-argmins (ADVICE r3 low).
+        # min-over-local-argmins.
         sg = lax.stop_gradient
         d_unc_glob = lax.pmin(sg(d_unc), axis)
         big = jnp.int32(2**30)
@@ -150,50 +150,6 @@ def _sharded_sdfs(structure: SceneStructure, cfg: RenderConfig,
 
     del shard_offset
     return sdf, sdf_id
-
-
-def _make_pallas_pmin_sdf(structure_local, cfg, axis, interpret, params,
-                          jnp_sdf):
-    """The object-sharded scene SDF evaluated through the PALLAS windowed
-    traversal (r3 verdict item 4): this device's sphere shard is packed
-    into the traversal tables ONCE per render, every evaluation runs
-    pallas_march.make_instanced_eval over the local tables with the
-    AXIS-COMBINED bbox (so the step-clamp cut matches the unsharded
-    oracle), and the per-device results pmin-combine — the march loop
-    stays lockstep across the object group exactly as in the jnp variant.
-
-    Differentiability: the Pallas eval is value-only, so the function is a
-    custom_jvp whose tangent re-evaluates through the jnp twin `jnp_sdf`
-    (values agree to f32 exactness — the traversal is exact; reverse mode
-    falls out of the jvp). The gradient consumers are the re-attachment
-    sites (IFT numerator/denominator, normal taps, penumbra re-eval),
-    called O(1) times per pixel; the hot march/shadow loops stop-gradient
-    the SDF anyway."""
-    from loltracer_tpu.render.pallas_march import make_instanced_eval
-    from loltracer_tpu.render.pallas_scene import pack_instanced_spheres
-
-    eval_fn = make_instanced_eval(structure_local, cfg, interpret=interpret)
-    spheres_t, mu_b, blk_b, bbox_loc = pack_instanced_spheres(params)
-    sg = lax.stop_gradient
-    lo = lax.pmin(sg(bbox_loc[:3]), axis)
-    hi = lax.pmax(sg(bbox_loc[3:]), axis)
-    tables = (sg(spheres_t), sg(mu_b), sg(blk_b),
-              jnp.concatenate([lo, hi]))
-
-    @jax.custom_jvp
-    def sdf(params_, p):
-        d_loc = eval_fn(tables, jnp.asarray(params_.plane_y), p)
-        return lax.pmin(d_loc, axis)
-
-    @sdf.defjvp
-    def sdf_jvp(primals, tangents):
-        params_, p = primals
-        dparams, dp = tangents
-        val = sdf(params_, p)
-        _, tan = jax.jvp(jnp_sdf, (params_, p), (dparams, dp))
-        return val, tan
-
-    return sdf
 
 
 def make_object_sharded_renderer(
@@ -210,20 +166,11 @@ def make_object_sharded_renderer(
     mesh). Every device in an object group evaluates its sphere shard and
     the march runs on the pmin-combined distance; results are bitwise
     independent of the object-mesh size (only the reduction tree order of
-    identical-value pmins differs).
-
-    With cfg.march_backend resolving to "pallas"/"pallas-interpret", each
-    device's local evaluation runs through the Pallas windowed-traversal
-    kernel (_make_pallas_pmin_sdf) instead of the jnp block scan — the
-    composition of the object axis with the Pallas tier."""
+    identical-value pmins differs). The pmin-combined SDF overrides the
+    scene's own, so the marches run as jnp loops (render_rays)."""
     if not structure.instanced:
         raise ValueError("object sharding applies to instanced scenes")
     n_obj = mesh.shape[obj_axis]
-    from loltracer_tpu.render.backend import resolve_march_backend
-
-    backend = resolve_march_backend(cfg.march_backend, mesh)
-    use_pallas = backend in ("pallas", "pallas-interpret")
-    interpret = backend == "pallas-interpret"
     cfg = cfg.replace(march_backend="jnp")  # custom sdf -> jnp march loop
 
     # static shard bookkeeping: spheres pad to a multiple of the object
@@ -261,7 +208,7 @@ def make_object_sharded_renderer(
         sdf, sdf_id = _sharded_sdfs(structure_local, cfg, None, obj_axis)
         # shadow marches under their own clamp need their own pmin SDF —
         # the unsharded oracle builds a second scene SDF at the effective
-        # shadow clamp, so the sharded path must too (ADVICE r4)
+        # shadow clamp, so the sharded path must too
         shadow_sdf = None
         sclamp = cfg.effective_shadow_clamp()
         shadow_cfg = cfg.replace(
@@ -271,15 +218,6 @@ def make_object_sharded_renderer(
             shadow_sdf, _ = _sharded_sdfs(
                 structure_local, shadow_cfg, None, obj_axis
             )
-        if use_pallas:
-            sdf = _make_pallas_pmin_sdf(
-                structure_local, cfg, obj_axis, interpret, params, sdf
-            )
-            if shadow_sdf is not None:
-                shadow_sdf = _make_pallas_pmin_sdf(
-                    structure_local, shadow_cfg, obj_axis, interpret,
-                    params, shadow_sdf,
-                )
         ro, rd = camera_rays_for_rows(params, rows, height, width, cfg)
         pr = pixel_radius(params, height, cfg) if cfg.antialias else None
         return render_rays(

@@ -5,8 +5,11 @@ axis via shard_map — the SPMD replacement for the reference's dynamic
 scanline stealing (naive_renderer.c:216). Forward needs zero communication
 (each device owns its rows end-to-end, mirroring the reference's disjoint
 scanline writes); backward all-reduces only the KB-sized scene-parameter
-gradient pytree via psum, which XLA routes over ICI/DCN and overlaps with
-the backward computation.
+gradient pytree via psum, which XLA hands to NCCL (NVLink between the cards
+of a host, the network between hosts) and overlaps with the backward
+computation. Each shard renders its rows through `render_rays`, so the
+march value passes take whatever backend the mesh's devices resolve to
+(render/backend.py).
 """
 
 from __future__ import annotations
@@ -28,13 +31,20 @@ from loltracer_tpu.render.jnp_renderer import pixel_radius, render_rays
 from loltracer_tpu.scene import SceneParams, SceneStructure
 
 
-def _resolve_backend(cfg: RenderConfig, mesh: Mesh) -> RenderConfig:
+def _resolve_backend(cfg: RenderConfig, mesh: Mesh, structure,
+                     dtype) -> RenderConfig:
     """Resolve march_backend="auto" FULLY against the mesh's actual devices
     (render/backend.py) so code inside shard_map never consults the global
-    default device — the mesh is the single source of truth here."""
-    return cfg.replace(
-        march_backend=resolve_march_backend(cfg.march_backend, mesh)
-    )
+    default device — the mesh is the single source of truth here. "auto"
+    keeps the jnp loops where the kernels do not apply (instanced scenes,
+    non-f32 rays); an explicit kernel backend is passed on and raises
+    there."""
+    backend = resolve_march_backend(cfg.march_backend, mesh)
+    if cfg.march_backend == "auto" and (
+        structure.instanced or jnp.dtype(dtype) != jnp.float32
+    ):
+        backend = "jnp"
+    return cfg.replace(march_backend=backend)
 
 
 def _check_divisible(height: int, mesh: Mesh) -> None:
@@ -50,19 +60,28 @@ def _row_axes(mesh: Mesh):
     """Every mesh axis, major-to-minor: rows shard over ALL of them. For the
     1-D mesh this is ('devices',); for the 2-D (hosts, chips) mesh the hosts
     axis is major so each host owns a contiguous row block (host-local I/O)
-    and reductions combine intra-host (ICI) before inter-host (DCN)."""
+    and reductions combine within a host (NVLink) before crossing the
+    network between hosts."""
     return tuple(mesh.axis_names)
 
 
-def row_granularity(structure) -> int:
-    """Interleave/row-table block size: whole P_H-row patches for
-    instanced scenes (patch coherence feeds the traversal windows), 8-row
-    sublane groups for compiled scenes."""
-    if structure.instanced:
-        from loltracer_tpu.render.pallas_march import P_H
+# Rows per band of the banded per-shard render of instanced scenes
+# (_jnp_row_renderer).
+INSTANCED_BAND_ROWS = 16
 
-        return P_H
-    return 8
+
+def row_granularity(structure, height=None, n_shards=None) -> int:
+    """Rows per dealt block: one band of the banded instanced render, so a
+    band is one contiguous image block; 8 rows for compiled scenes (the
+    height of a kernel block's pixel patch, render/triton_march.py). Given
+    `height` and `n_shards`, the largest block height up to that which
+    deals every shard the same number of blocks (1080 rows over 4 shards:
+    6-row blocks)."""
+    g = INSTANCED_BAND_ROWS if structure.instanced else 8
+    if height is not None and n_shards is not None:
+        while g > 1 and height % (n_shards * g):
+            g -= 1
+    return g
 
 
 def assign_blocks(n_blocks: int, n_shards: int, block_costs=None):
@@ -75,7 +94,7 @@ def assign_blocks(n_blocks: int, n_shards: int, block_costs=None):
     deterministic step-count model, utils/profiling.block_row_costs):
     capacity-constrained LPT — blocks sorted by estimated cost, each
     assigned to the least-loaded shard with capacity left. That is the
-    TPU-native answer to the reference's DYNAMIC scanline stealing
+    static-SPMD answer to the reference's DYNAMIC scanline stealing
     (naive_renderer.c:216): compute the schedule host-side once, compile
     a static SPMD program."""
     import numpy as np
@@ -134,8 +153,8 @@ def _row_permutation(structure, height, width, mesh, cfg, interleave,
     model drive the LPT schedule; else snake dealing."""
     if not interleave:
         return None
-    G = row_granularity(structure)
     n = mesh.devices.size
+    G = row_granularity(structure, height, n)
     bc = None
     if balance_params is not None and height % G == 0:
         from loltracer_tpu.utils.profiling import block_row_costs
@@ -146,61 +165,15 @@ def _row_permutation(structure, height, width, mesh, cfg, interleave,
     return interleave_rows(height, n, G, block_costs=bc)
 
 
-def _fused_row_renderer(structure, cfg, mesh, height, width, fused):
-    """The per-shard fused training renderer when it applies (TPU mesh or
-    explicit request, envelope shadows), else None -> the jnp path. Each
-    device renders its assigned rows through the custom_vjp Pallas
-    kernels (render/pallas_train.py) — the compiled-scene kernels or the
-    instanced windowed-traversal kernels (r3 verdict missing #1: BASELINE
-    config 5's fast path is now scene-agnostic under shard_map, like the
-    reference's scanline parallelism naive_renderer.c:216) — so the SPMD
-    training step's entire per-device compute is two fused kernels + the
-    loss. The returned fn takes (params, rows) and derives its ROW TABLE
-    from the shard's row vector, so both contiguous and interleaved
-    assignments work."""
-    if fused == "off" or cfg.shadow_grad != "envelope":
-        return None
-    if fused == "auto":
-        if resolve_march_backend(cfg.march_backend, mesh) != "pallas":
-            return None
-        interpret = False
-    elif fused == "interpret":
-        interpret = True
-    else:
-        raise ValueError(f"unknown fused mode {fused!r}")
-    rows_per = height // mesh.devices.size
-    G = row_granularity(structure)
-    if structure.instanced:
-        from loltracer_tpu.render.pallas_train import (
-            make_instanced_training_renderer,
-        )
-
-        tab_fn = make_instanced_training_renderer(
-            structure, rows_per, width, cfg, interpret=interpret,
-            full_height=height, with_row_table=True,
-        )
-    else:
-        from loltracer_tpu.render.pallas_train import make_training_renderer
-
-        tab_fn = make_training_renderer(
-            structure, rows_per, width, cfg, interpret=interpret,
-            full_height=height, with_row_table=True,
-        )
-
-    def fn(params, rows):
-        return tab_fn(params, rows[::G].astype(jnp.float32))
-
-    return fn
-
-
 def _jnp_row_renderer(structure, cfg, height, width, dtype,
-                      band_rows: int = 16):
-    """The per-shard jnp render fallback: `(params, rows) -> [len(rows), W,
-    3]`. For INSTANCED scenes the shard renders in sequential row BANDS
-    (jax.lax.map + checkpoint, mirroring jnp_renderer.render_image_banded):
-    unbanded, every SDF-eval site materializes [shard_pixels, object_block]
-    temporaries, which is fatal at >=720p-per-shard (r3 verdict missing #2;
-    PERF.md records the failure). Compiled scenes render in one shot."""
+                      band_rows: int = INSTANCED_BAND_ROWS):
+    """The per-shard renderer: `(params, rows) -> [len(rows), W, 3]`
+    through `render_rays`, whose march value passes follow
+    cfg.march_backend. For INSTANCED scenes the shard renders in sequential
+    row BANDS (jax.lax.map + checkpoint, mirroring
+    jnp_renderer.render_image_banded): unbanded, every SDF-eval site
+    materializes [shard_pixels, object_block] temporaries, which runs out
+    of memory at 720p per shard. Compiled scenes render in one shot."""
     def render_rows(params: SceneParams, rows):
         pr = pixel_radius(params, height, cfg) if cfg.antialias else None
         if not structure.instanced or rows.shape[0] <= band_rows:
@@ -232,29 +205,20 @@ def make_sharded_renderer(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     dtype=jnp.float32,
-    fused: str = "auto",
     interleave: bool = True,
     balance_params: Optional[SceneParams] = None,
 ) -> Callable[[SceneParams], jnp.ndarray]:
     """Compile `params -> [H, W, 3]` with rows sharded over the mesh and the
-    scene parameters replicated. `fused` selects the per-shard fused Pallas
-    tier ("auto" on TPU meshes / "interpret" / "off" -> jnp). Rows are
-    dealt to devices in interleaved blocks when the height allows
+    scene parameters replicated. Rows are dealt to devices in interleaved blocks when the height allows
     (`interleave`, see interleave_rows/assign_blocks) — per-pixel values
     are identical either way, only the load balance changes. Passing
     `balance_params` (typically the current scene params) upgrades the
     snake deal to the cost-aware LPT schedule from the step-count model
     (utils/profiling.block_row_costs), computed once at build time."""
     _check_divisible(height, mesh)
-    cfg = _resolve_backend(cfg, mesh)
+    cfg = _resolve_backend(cfg, mesh, structure, dtype)
     axes = _row_axes(mesh)
-    fused_fn = _fused_row_renderer(structure, cfg, mesh, height, width, fused)
-    jnp_rows = _jnp_row_renderer(structure, cfg, height, width, dtype)
-
-    def render_rows(params: SceneParams, rows):
-        if fused_fn is not None:
-            return fused_fn(params, rows)
-        return jnp_rows(params, rows)
+    render_rows = _jnp_row_renderer(structure, cfg, height, width, dtype)
 
     sharded = shard_map(
         render_rows,
@@ -288,28 +252,21 @@ def make_sharded_loss(
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     dtype=jnp.float32,
-    fused: str = "auto",
     interleave: bool = True,
     balance_params: Optional[SceneParams] = None,
 ) -> Callable[[SceneParams, jnp.ndarray], jnp.ndarray]:
     """`(params, target [H, W, 3]) -> scalar mean-squared-error`, computed
     with rows sharded and the partial sums all-reduced (the backward pass of
-    the psum is where scene-parameter gradients get all-reduced). On TPU
-    meshes with envelope shadows, each shard's render fwd+bwd runs through
-    the fused Pallas training kernels (`fused`, _fused_row_renderer).
-    With `interleave`, rows (and the target, identically) are dealt in
+    the psum is where scene-parameter gradients get all-reduced). With
+    `interleave`, rows (and the target, identically) are dealt in
     snake blocks; the summed loss is permutation-invariant."""
     _check_divisible(height, mesh)
-    cfg = _resolve_backend(cfg, mesh)
+    cfg = _resolve_backend(cfg, mesh, structure, dtype)
     axes = _row_axes(mesh)
-    fused_fn = _fused_row_renderer(structure, cfg, mesh, height, width, fused)
-    jnp_rows = _jnp_row_renderer(structure, cfg, height, width, dtype)
+    render_rows = _jnp_row_renderer(structure, cfg, height, width, dtype)
 
     def local_loss(params: SceneParams, rows, target_rows):
-        if fused_fn is not None:
-            img = fused_fn(params, rows)
-        else:
-            img = jnp_rows(params, rows)
+        img = render_rows(params, rows)
         sq = (img - target_rows) ** 2
         return lax.psum(jnp.sum(sq), axes) / (height * width * 3)
 
@@ -346,7 +303,6 @@ def make_sharded_train_step(
     cfg: RenderConfig = DEFAULT_CONFIG,
     dtype=jnp.float32,
     project: Optional[Callable[[SceneParams], SceneParams]] = None,
-    fused: str = "auto",
     interleave: bool = True,
     balance_params: Optional[SceneParams] = None,
 ):
@@ -359,7 +315,7 @@ def make_sharded_train_step(
     `project` optionally re-projects params after the update (e.g. radii > 0).
     """
     loss_fn = make_sharded_loss(
-        structure, mesh, height, width, cfg, dtype, fused=fused,
+        structure, mesh, height, width, cfg, dtype,
         interleave=interleave, balance_params=balance_params,
     )
 

@@ -1,10 +1,12 @@
-"""The vectorized jnp renderer: the minimum end-to-end TPU slice.
+"""The renderer: one differentiable path from scene parameters to pixels.
 
 One jittable function renders the whole image as a [H, W] ray batch through
 the full pipeline — camera rays, differentiable march, tetrahedron normals,
 per-light soft shadows, Phong shading, gamma — entirely from the scene
 parameter pytree, so `jax.grad` of any image loss w.r.t. the scene works out
 of the box. Equivalent to the per-pixel worker loop naive_renderer.c:195-240.
+The two marches are frozen value passes with pluggable implementations
+(`_select_march`, `_select_shadow_march`); gradients are re-attached in jnp.
 """
 
 from __future__ import annotations
@@ -42,54 +44,65 @@ def gamma_encode(color, gamma: float):
     return jnp.where(positive, safe**gamma, 0.0)
 
 
-def _select_march(structure: SceneStructure, ro, rd, cfg: RenderConfig):
-    """Pick the march implementation for this call: the fused Pallas kernel
-    when it applies (TPU or explicitly requested, compiled scene, [H, W, 3]
-    f32 ray grid from a single origin), else None -> the jnp while_loop."""
+def _kernel_backend(structure: SceneStructure, rd, cfg: RenderConfig):
+    """The kernel backend for this call's value passes, or None for the jnp
+    loops. The kernels apply to a compiled scene and an [H, W, 3] f32 ray
+    grid; where that does not hold, "auto" falls back to jnp and an
+    explicitly requested kernel backend raises."""
     backend = resolve_march_backend(cfg.march_backend)
     if backend == "jnp":
         return None
     applicable = (
-        rd.ndim == 3
+        not structure.instanced
+        and rd.ndim == 3
         and rd.shape[-1] == 3
-        and ro.ndim == 1
         and rd.dtype == jnp.float32
     )
     if not applicable:
-        if backend == "pallas-interpret":
+        if cfg.march_backend != "auto":
             raise ValueError(
-                "march_backend=pallas-interpret requires a compiled scene "
-                f"and an [H, W, 3] f32 ray grid; got rd {rd.shape} {rd.dtype}"
+                f"march_backend={cfg.march_backend!r} requires a compiled "
+                "scene and an [H, W, 3] f32 ray grid; got instanced="
+                f"{structure.instanced}, rd {rd.shape} {rd.dtype}"
             )
         return None
-    from loltracer_tpu.render.pallas_march import make_pallas_march
+    return backend
 
-    return make_pallas_march(
-        structure, cfg, interpret=(backend == "pallas-interpret")
+
+def _select_march(structure: SceneStructure, ro, rd, cfg: RenderConfig):
+    """The primary-march value pass for this call: the Triton kernel when
+    `_kernel_backend` picks it (and the rays share one origin), else None ->
+    the jnp while_loop."""
+    backend = _kernel_backend(structure, rd, cfg)
+    if backend is None:
+        return None
+    if ro.ndim != 1:
+        if cfg.march_backend != "auto":
+            raise ValueError(
+                f"march_backend={cfg.march_backend!r} requires one ray "
+                f"origin [3]; got ro {ro.shape}"
+            )
+        return None
+    from loltracer_tpu.render.triton_march import make_triton_march
+
+    return make_triton_march(
+        structure, cfg, interpret=(backend == "triton-interpret")
     )
 
 
 def _select_shadow_march(structure: SceneStructure, rd, cfg: RenderConfig):
-    """Pick the frozen shadow-march implementation for envelope-gradient
-    shadows: the Pallas shadow kernel under the same conditions as
-    _select_march (TPU/explicit backend, compiled scene, [H, W] f32 grid),
-    else None -> the jnp scan inside shading.soft_shadow."""
+    """The frozen shadow-march value pass for envelope-gradient shadows:
+    the Triton kernel under the same rule as `_select_march`, else None ->
+    the jnp scan inside shading.soft_shadow."""
     if cfg.shadow_grad != "envelope":
         return None
-    backend = resolve_march_backend(cfg.march_backend)
-    if backend == "jnp":
+    backend = _kernel_backend(structure, rd, cfg)
+    if backend is None:
         return None
-    applicable = (
-        rd.ndim == 3
-        and rd.shape[-1] == 3
-        and rd.dtype == jnp.float32
-    )
-    if not applicable:
-        return None
-    from loltracer_tpu.render.pallas_march import make_pallas_shadow_march
+    from loltracer_tpu.render.triton_march import make_triton_shadow_march
 
-    return make_pallas_shadow_march(
-        structure, cfg, interpret=(backend == "pallas-interpret")
+    return make_triton_shadow_march(
+        structure, cfg, interpret=(backend == "triton-interpret")
     )
 
 
@@ -109,8 +122,7 @@ def render_rays(
     (see pixel_radius), silhouettes get soft differentiable coverage.
     `sdf`/`sdf_id`/`shadow_sdf` override the scene SDF (the object-sharded
     path injects pmin-combined SDFs here, parallel/objects.py); overrides
-    force the jnp march (the Pallas kernels compile the structure's own
-    SDF)."""
+    force the jnp march (the kernels compile the structure's own SDF)."""
     clamp = cfg.step_clamp if structure.instanced else None
     override = sdf is not None
     if sdf is None:
@@ -121,7 +133,7 @@ def render_rays(
     # (config.py shadow_step_clamp); an sdf override whose shadow clamp
     # differs must supply its own shadow_sdf — silently reusing the
     # primary-clamp override would diverge from the unsharded oracle
-    # (ADVICE r4; parallel/objects.py threads one)
+    # (parallel/objects.py threads one)
     shadow_clamp = cfg.effective_shadow_clamp() if structure.instanced else None
     if shadow_sdf is None:
         if shadow_clamp == clamp:

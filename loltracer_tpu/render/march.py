@@ -6,7 +6,7 @@ accumulating t += d, stopping when d < epsilon or t > max_dist; the hit id is
 the argmin id from the *last* SDF evaluation (i.e. at the pre-accumulation
 t), and id becomes 0 (miss) when the final t >= max_dist.
 
-On TPU the per-ray `break` becomes lane masking: a single
+Batched, the per-ray `break` becomes lane masking: a single
 `lax.while_loop` runs until every ray in the batch is done (or max_steps),
 with per-lane done flags freezing converged rays — the wavefront-divergence
 model of SURVEY.md §5.7.
@@ -153,8 +153,8 @@ def intersect_aa(
       follows a sawtooth landscape and diverges (see tests/test_aa.py).
 
     `march_fn(params, ro, rd) -> MarchResult` optionally replaces the jnp
-    march for the stop-gradient'd value computation (e.g. the Pallas march
-    kernel, render/pallas_march.py) — gradient semantics are unchanged
+    march for the stop-gradient'd value computation (e.g. the Triton march
+    kernel, render/triton_march.py) — gradient semantics are unchanged
     because the march result is frozen either way; inputs are stop-gradient'd
     too so AD never needs a JVP rule for the kernel call.
     """

@@ -1,6 +1,6 @@
 """Batched, differentiable scene-SDF evaluation in jnp.
 
-`make_scene_sdf(structure)` is the TPU-native analog of the reference's
+`make_scene_sdf(structure)` is the XLA analog of the reference's
 scene JIT (tracing_jit_renderer.dasc:76-143): it walks the static scene
 structure ONCE in Python and returns a closure whose jnp ops are specialized
 to that structure when traced by XLA. Parameters stay traced inputs, so the
@@ -15,7 +15,7 @@ documented decision, since the reference's JIT backend breaks ties the other
 way, SURVEY.md §2.1.3).
 
 All ops are plain jnp on arrays shaped [..., ] and work identically inside
-Pallas kernel bodies (the Pallas renderer reuses these builders).
+kernel bodies.
 """
 
 from __future__ import annotations
@@ -67,8 +67,7 @@ def make_scene_sdf(
 
     `step_clamp` (instanced structures only; config.py RenderConfig
     docstring) returns the step-clamped distance min(d, step_clamp) — one
-    extra op here, so this function stays the bitwise oracle for the
-    clamped Pallas traversal."""
+    extra op here."""
     if structure.instanced:
         inner = _make_instanced_sdf(structure, step_clamp)
         return lambda params, p: inner(params, p)[0]
@@ -162,8 +161,7 @@ def _make_instanced_sdf(
         # the distance-to-bounding-box outside the sphere set's AABB
         # (cut = max(clamp, d_bbox), still a true lower bound of every
         # sphere distance), so rays escape empty space at full stride
-        # instead of crawling in clamp-sized steps. The Pallas traversal
-        # computes the identical cut (pallas_scene.py dist_only).
+        # instead of crawling in clamp-sized steps.
         if step_clamp is not None and ns:
             real = rad > -1e29  # object-sharded shards carry sentinel pads
             lo = jnp.min(

@@ -31,27 +31,10 @@ _NORMAL_KS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0
 from loltracer_tpu.render.vecmath import dot as _dot, normalize as _normalize
 
 
-def soft_shadow(
-    sdf: Callable,
-    params,
-    ro,
-    rd,
-    max_dist,
-    cfg: RenderConfig,
-    shadow_march_fn: Callable = None,
-):
-    """softshadow(scene, ro, rd, 128, light_dist, 50) of
-    naive_renderer.c:71-90. `ro` is the already-offset origin; `max_dist`
-    the per-ray distance to the light.
-
-    Gradient estimator selected by cfg.shadow_grad (config.py):
-    "exact" backpropagates through the full rematerialized scan;
-    "envelope" freezes the scan (optionally replaced by the Pallas shadow
-    kernel via `shadow_march_fn(params, ro, rd, max_dist) -> (res, t*)`)
-    and re-attaches the gradient via one differentiable SDF evaluation at
-    the recorded argmin t* (Danskin's theorem on the penumbra envelope
-    min(1, min_t w·f(ro+t·rd)/t)). Forward values are identical either way.
-    """
+def shadow_march(sdf: Callable, params, ro, rd, max_dist, cfg: RenderConfig):
+    """The shadow march of naive_renderer.c:71-90 as a `cfg.shadow_steps`
+    scan: (res, t*), the raw (unclamped) running min of w·d/t and the first
+    step t at which it was reached."""
     batch = jnp.broadcast_shapes(ro.shape[:-1], rd.shape[:-1], max_dist.shape)
     dtype = rd.dtype
     inf = jnp.asarray(jnp.inf, dtype)
@@ -75,28 +58,49 @@ def soft_shadow(
         new_done = done | (new_res < -1) | (new_t > max_dist)
         return (new_res, new_t, t_star, new_done), None
 
-    def scan_march(params_, ro_, rd_, max_dist_):
-        init = (
-            jnp.ones(batch, dtype),
-            jnp.zeros(batch, dtype),
-            jnp.zeros(batch, dtype),
-            jnp.zeros(batch, bool),
+    init = (
+        jnp.ones(batch, dtype),
+        jnp.zeros(batch, dtype),
+        jnp.zeros(batch, dtype),
+        jnp.zeros(batch, bool),
+    )
+    with jax.named_scope("lol_shadow_march"):
+        (res, _, t_star, _), _ = lax.scan(
+            body, init, None, length=cfg.shadow_steps
         )
-        with jax.named_scope("lol_shadow_march"):
-            (res, _, t_star, _), _ = lax.scan(
-                body, init, None, length=cfg.shadow_steps
-            )
-        return res, t_star
+    return res, t_star
 
+
+def soft_shadow(
+    sdf: Callable,
+    params,
+    ro,
+    rd,
+    max_dist,
+    cfg: RenderConfig,
+    shadow_march_fn: Callable = None,
+):
+    """softshadow(scene, ro, rd, 128, light_dist, 50) of
+    naive_renderer.c:71-90. `ro` is the already-offset origin; `max_dist`
+    the per-ray distance to the light.
+
+    Gradient estimator selected by cfg.shadow_grad (config.py):
+    "exact" backpropagates through the full rematerialized scan;
+    "envelope" freezes the scan (optionally replaced by the Triton shadow
+    kernel via `shadow_march_fn(params, ro, rd, max_dist) -> (res, t*)`)
+    and re-attaches the gradient via one differentiable SDF evaluation at
+    the recorded argmin t* (Danskin's theorem on the penumbra envelope
+    min(1, min_t w·f(ro+t·rd)/t)). Forward values are identical either way.
+    """
     if cfg.shadow_grad == "exact":
-        res, _ = scan_march(params, ro, rd, max_dist)
+        res, _ = shadow_march(sdf, params, ro, rd, max_dist, cfg)
         return jnp.maximum(res, 0.0)
 
     if cfg.shadow_grad != "envelope":
         raise ValueError(f"unknown shadow_grad {cfg.shadow_grad!r}")
 
     sg = lax.stop_gradient
-    frozen = shadow_march_fn if shadow_march_fn is not None else scan_march
+    frozen = shadow_march_fn or partial(shadow_march, sdf, cfg=cfg)
     res0, t_star = jax.tree_util.tree_map(
         sg, frozen(sg(params), sg(ro), sg(rd), sg(max_dist))
     )
@@ -123,7 +127,7 @@ def get_normal(sdf: Callable, params, p, dist, cfg: RenderConfig):
     single kernel instead of four, and the fused XLA backward of the
     four-separate-calls formulation miscompiled to NaN/garbage gradients on
     XLA:CPU (observed empirically; the batched graph is also what we want on
-    TPU)."""
+    the GPU)."""
     with jax.named_scope("lol_normal"):
         ks = jnp.asarray(_NORMAL_KS, p.dtype)  # [4, 3]
         batch_ndim = p.ndim - 1
@@ -131,9 +135,9 @@ def get_normal(sdf: Callable, params, p, dist, cfg: RenderConfig):
         h = (dist * cfg.normal_h_scale)[..., None]  # [..., 1]
         pts = p[None] + ks_b * h[None]  # [4, ..., 3] — tap axis leading
         d = sdf(params, pts)  # [4, ...]
-        n = jnp.tensordot(
-            jnp.moveaxis(d, 0, -1), ks, axes=([-1], [0])
-        )  # [..., 3]
+        # an elementwise sum over the taps, not a contraction: a float32
+        # dot may run at reduced (TF32) precision on a GPU
+        n = sum(d[k][..., None] * ks[k] for k in range(4))  # [..., 3]
         return _normalize(n)
 
 

@@ -8,7 +8,7 @@ a static, hashable `SceneStructure` that Python control flow unrolls at JAX
 trace time, while every number in the scene (positions, radii, half-extents,
 smoothness, materials, lights, camera) lives in a struct-of-arrays
 `SceneParams` pytree that stays a traced input. XLA then compiles one
-specialized TPU program per scene structure — the analog of the JIT — and that
+specialized program per scene structure — the analog of the JIT — and that
 single compile serves every frame *and* every gradient step, because the
 parameters being inputs is what makes the renderer differentiable w.r.t. the
 scene (the capability the reference lacks).

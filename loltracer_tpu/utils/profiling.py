@@ -2,20 +2,21 @@
 
 The reference's profiling story is a per-frame ms log (main.c:196-204) and
 Linux-perf jitdump symbolication of the generated SDF kernel
-(jitdump.c; SURVEY.md §5.1). The TPU equivalents:
+(jitdump.c; SURVEY.md §5.1). Here:
 
 - `trace(logdir)`: jax.profiler trace context -> xprof/tensorboard, with the
-  scene kernels identifiable via jax.named_scope,
+  scene kernels identifiable via jax.named_scope and the kernel names,
 - `march_step_stats`: per-pixel march step counts + histogram — the
-  wavefront-divergence/occupancy metric for tile sizing (SURVEY.md §5.5):
-  a tile's cost is its *worst* ray, so the step distribution tells you how
-  much masked work lane-masking wastes,
+  divergence/occupancy metric for block sizing (SURVEY.md §5.5): a kernel
+  block runs until its *worst* ray is done, so the step distribution tells
+  you how much masked work that wastes,
 - `frame_timer`: running min/max/avg frame times like the reference's log.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Dict, Iterator, Tuple
 
@@ -27,7 +28,12 @@ from jax import lax
 from loltracer_tpu.config import DEFAULT_CONFIG, RenderConfig
 from loltracer_tpu.render.camera import camera_rays
 from loltracer_tpu.render.sdf import make_scene_sdf
+from loltracer_tpu.render.triton_march import BLOCK_PATCHES, DEFAULT_BLOCK
 from loltracer_tpu.scene import SceneParams, SceneStructure
+
+# The pixel patch one kernel block marches (render/triton_march.py): the
+# unit of the worst-ray cost model below.
+BLOCK_TILE = BLOCK_PATCHES[DEFAULT_BLOCK]
 
 
 @contextlib.contextmanager
@@ -84,16 +90,16 @@ def march_step_stats(
     height: int,
     width: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
-    tile: Tuple[int, int] = (8, 128),
+    tile: Tuple[int, int] = BLOCK_TILE,
 ) -> Dict[str, float]:
     """Occupancy summary: step distribution plus the masked-work overhead of
-    (8, 128) tiling — mean tile max over mean step count measures how much
-    a tile's worst ray makes its converged lanes wait."""
+    the kernel's block patches — mean tile max over mean step count
+    measures how much a block's worst ray makes its converged rays wait."""
     steps = march_step_counts(structure, params, height, width, cfg)
 
     def waste(th, tw):
         # None (json null) when the image is smaller than the tile —
-        # NaN would poison strict-JSON measurement artifacts (ADVICE r4)
+        # NaN would poison strict-JSON output
         hh = height - height % th
         ww = width - width % tw
         if not hh or not ww:
@@ -113,10 +119,6 @@ def march_step_stats(
         "p99_steps": float(np.percentile(steps, 99)),
         "max_steps": float(steps.max()),
         "tile_waste": ratio(waste(th, tw)),
-        # the hardware tile since r4 (pallas_scene.resolve_tile): bigger
-        # tiles pay MORE worst-lane masking yet measure faster — the
-        # scalar loop-control cost per tile-iteration dominates (PERF.md)
-        "tile_waste_64x128": ratio(waste(64, 128)),
     }
 
 
@@ -128,8 +130,7 @@ def shadow_step_counts(
     cfg: RenderConfig = DEFAULT_CONFIG,
 ) -> np.ndarray:
     """Per-pixel, per-light shadow-march iteration counts at the primary
-    hit (naive_renderer.c:71-100 loop trips), [L, H, W] int32 — the other
-    70%+ of the frame cost (PERF.md instanced decomposition)."""
+    hit (naive_renderer.c:71-100 loop trips), [L, H, W] int32."""
     sdf = make_scene_sdf(structure)
 
     @jax.jit
@@ -203,17 +204,15 @@ def band_balance(
     width: int,
     n_bands: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
-    tile: Tuple[int, int] = (8, 128),
+    tile: Tuple[int, int] = BLOCK_TILE,
 ) -> Dict[str, object]:
     """Deterministic per-band cost model for row-sharded SPMD (SURVEY
-    §5.7): a band's cost is the sum over its tiles of the WORST-lane march
-    steps plus per-light worst-lane shadow steps — the serial tile-loop
-    cost the r4 tile sweep proved dominant (PERF.md). Returns per-band
-    costs and the load-balance efficiency sum / (N * max): the fraction of
-    ideal weak/strong-scaling throughput an N-way row shard of THIS image
-    can reach, independent of host contention (r4 verdict weak #3 — the
-    faked-CPU wall ladders measure contention, this measures the
-    algorithm). Real collectives add only a KB-sized grad psum on top."""
+    §5.7): a band's cost is the sum over its tiles (kernel block patches)
+    of the WORST-ray march steps plus per-light worst-ray shadow steps.
+    Returns per-band costs and the load-balance efficiency sum / (N * max):
+    the fraction of ideal scaling throughput an N-way row shard of THIS
+    image can reach, independent of timers. Real collectives add only a
+    KB-sized grad psum on top."""
     if height % (n_bands * tile[0]):
         raise ValueError(
             f"height {height} must tile into {n_bands} bands of "
@@ -226,7 +225,7 @@ def band_balance(
     if not ww:
         raise ValueError(f"width {width} smaller than tile width {tw}")
 
-    def tile_cost(plane):  # [H, W] -> summed worst-lane steps per band
+    def tile_cost(plane):  # [H, W] -> summed worst-ray steps per band
         tiles = plane[:, :ww].reshape(height // th, th, ww // tw, tw)
         per_tile = tiles.max(axis=(1, 3))  # [H/th, W/tw]
         bands = per_tile.reshape(n_bands, -1, per_tile.shape[1])
@@ -250,13 +249,22 @@ def block_row_costs(
     width: int,
     G: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
-    tile: Tuple[int, int] = (8, 128),
+    tile: Tuple[int, int] = BLOCK_TILE,
 ) -> np.ndarray:
     """Estimated cost per G-row block, [height // G] float64: summed
-    worst-lane march + per-light shadow steps over the block's tiles (the
-    serial tile cost model). Feeds the cost-aware static schedule
+    worst-ray march + per-light shadow steps over the block's tiles (the
+    worst-ray tile cost model). Feeds the cost-aware static schedule
     (parallel/sharded.assign_blocks) — computed ONCE per build from the
     current params, host-side."""
+    th = math.gcd(G, tile[0])
+    per_row = _tile_row_costs(structure, params, height, width, cfg,
+                              (th, tile[1]))
+    return per_row.reshape(height // G, G // th).sum(axis=1)
+
+
+def _tile_row_costs(structure, params, height, width, cfg, tile):
+    """Worst-ray march + per-light shadow steps summed over each th-row
+    strip of (th, tw) tiles, [height // th] float64."""
     march = march_step_counts(structure, params, height, width, cfg)
     shadow = shadow_step_counts(structure, params, height, width, cfg)
     th, tw = tile
@@ -269,7 +277,7 @@ def block_row_costs(
     per_row = row_cost(march)
     for li in range(shadow.shape[0]):
         per_row = per_row + row_cost(shadow[li])
-    return per_row.reshape(height // G, G // th).sum(axis=1)
+    return per_row
 
 
 def shard_balance(
@@ -279,35 +287,25 @@ def shard_balance(
     width: int,
     n_shards: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
-    tile: Tuple[int, int] = (8, 128),
+    tile: Tuple[int, int] = BLOCK_TILE,
     cost_aware: bool = True,
 ) -> Dict[str, object]:
     """Load-balance efficiency of the PRODUCTION row-sharding assignment
     (parallel/sharded.py: cost-aware LPT blocks with cost_aware, snake
     blocks otherwise, contiguous bands when the height doesn't split), on
-    the same deterministic worst-lane tile cost model as band_balance.
-    This is the quantity that caps weak-scaling efficiency on real chips
-    — the contiguous bands the r4 ladders used measured 0.43-0.80 on
-    this model, which is why the dealt assignments exist."""
+    the same deterministic worst-ray tile cost model as band_balance.
+    This is the quantity that caps weak-scaling efficiency across cards;
+    contiguous bands balance poorly on it (sky rows are cheap, ground rows
+    expensive), which is why the dealt assignments exist."""
     from loltracer_tpu.parallel.sharded import (
         interleave_rows,
         row_granularity,
     )
 
-    march = march_step_counts(structure, params, height, width, cfg)
-    shadow = shadow_step_counts(structure, params, height, width, cfg)
-    th, tw = tile
-    ww = width - width % tw
-
-    def row_cost(plane):  # [H, W] -> worst-lane cost per th-row tile row
-        tiles = plane[:, :ww].reshape(height // th, th, ww // tw, tw)
-        return tiles.max(axis=(1, 3)).sum(axis=1).astype(np.float64)
-
-    per_row = row_cost(march)
-    for li in range(shadow.shape[0]):
-        per_row = per_row + row_cost(shadow[li])
-
-    G = row_granularity(structure)
+    G = row_granularity(structure, height, n_shards)
+    th = math.gcd(G, tile[0])
+    per_row = _tile_row_costs(structure, params, height, width, cfg,
+                              (th, tile[1]))
     bc = None
     if cost_aware and height % G == 0:
         bc = per_row.reshape(height // G, G // th).sum(axis=1)

@@ -1,7 +1,7 @@
 // Native .lol scene parser: tokenizer + recursive descent + semantic
 // extraction, C ABI for Python ctypes binding.
 //
-// This is the TPU framework's native counterpart of the reference's
+// This is the framework's native counterpart of the reference's
 // flex/bison frontend (scene-lexer.l, scene-parser.y, scene.c): same token
 // set (including the '-'/'_' keyword alias spellings, scene-lexer.l:20-26,
 // 36-39), same grammar (scene-parser.y:73-189), same semantic passes

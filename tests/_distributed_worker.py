@@ -5,8 +5,8 @@ LOLTRACE_NUM_PROCESSES / LOLTRACE_PROCESS_ID pointing at localhost: each
 process contributes 4 faked CPU devices, builds the global (hosts, chips)
 mesh, runs the row-sharded renderer and one sharded train step, and checks
 the results against a purely LOCAL single-device computation — proving the
-cross-process collectives (gloo over loopback, the DCN stand-in) change
-nothing. Prints one JSON line on success."""
+cross-process collectives (gloo over loopback, standing in for the network
+between hosts) change nothing. Prints one JSON line on success."""
 
 import json
 import os
@@ -30,10 +30,9 @@ def main():
     assert jax.process_count() == 2, jax.process_count()
 
     jax.config.update("jax_default_device", jax.local_devices()[0])
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"),
-    )
+    from loltracer_tpu.utils.cache import enable_cache
+
+    enable_cache()
 
     import jax.numpy as jnp
     import optax
@@ -92,21 +91,17 @@ def main():
     leaves = jax.tree_util.tree_leaves(params2)
     assert all(np.isfinite(np.asarray(l)).all() for l in leaves)
 
-    # --- the PRODUCTION custom_vjp tiers across the process-spanning mesh
-    # (r4 verdict weak #4: the DCN-analog path must exercise the fused
-    # kernels, not just the jnp tier). One train step through
-    # make_sharded_train_step(fused="interpret") on scene4 and on an
-    # instanced scene, each compared against a local single-device fused
-    # step with the identical loss/optimizer.
+    # --- the kernel route across the process-spanning mesh: one train
+    # step through make_sharded_train_step with both march value passes on
+    # the Triton kernels (in the interpreter here) on scene4, and one on an
+    # instanced scene (banded jnp rows), each compared against a local
+    # single-device step with the identical loss/optimizer.
     import dataclasses
 
-    from loltracer_tpu.render.pallas_train import (
-        make_instanced_training_renderer,
-        make_training_renderer,
-    )
+    from loltracer_tpu.render.jnp_renderer import render_image_banded
 
-    def fused_step_check(structure, params, Hc, Wc, cfg_c, make_single):
-        single = make_single(structure, Hc, Wc, cfg_c, interpret=True)
+    def step_check(structure, params, Hc, Wc, cfg_c, render_single):
+        single = lambda p: render_single(structure, p, Hc, Wc, cfg_c)
         target_c = jax.jit(single)(params)
         perturbed = dataclasses.replace(
             params,
@@ -116,7 +111,7 @@ def main():
             optax.adam(1e-2), params, ("sphere_point",)
         )
         step_c = make_sharded_train_step(
-            structure, mesh, Hc, Wc, opt_c, cfg_c, fused="interpret"
+            structure, mesh, Hc, Wc, opt_c, cfg_c
         )
         p_sh, _, loss_sh = step_c(
             perturbed, opt_c.init(perturbed), target_c
@@ -154,21 +149,21 @@ def main():
             )
         )
     )
-    fused_loss, fused_dl, fused_dp = fused_step_check(
+    kernel_loss, kernel_dl, kernel_dp = step_check(
         scene4.structure, scene4.params, 32, 128,
-        RenderConfig(shadow_grad="envelope"),
-        make_training_renderer,
+        RenderConfig(
+            shadow_grad="envelope", march_backend="triton-interpret"
+        ),
+        render_image,
     )
 
     from loltracer_tpu.scenes import instanced_spheres
 
     inst = instanced_spheres(n=150, seed=8)
-    inst_loss, inst_dl, inst_dp = fused_step_check(
-        inst.structure, inst.params, 64, 32,
-        RenderConfig(
-            shadow_grad="envelope", march_backend="jnp", step_clamp=2.0
-        ),
-        make_instanced_training_renderer,
+    inst_loss, inst_dl, inst_dp = step_check(
+        inst.structure, inst.params, 128, 32,
+        RenderConfig(shadow_grad="envelope", step_clamp=2.0),
+        render_image_banded,
     )
 
     print(
@@ -179,9 +174,9 @@ def main():
                 "sharded_loss": sharded_loss,
                 "local_loss": local_loss,
                 "step_loss": loss0,
-                "fused_loss": fused_loss,
-                "fused_loss_diff": fused_dl,
-                "fused_param_diff": fused_dp,
+                "kernel_loss": kernel_loss,
+                "kernel_loss_diff": kernel_dl,
+                "kernel_param_diff": kernel_dp,
                 "instanced_loss": inst_loss,
                 "instanced_loss_diff": inst_dl,
                 "instanced_param_diff": inst_dp,

@@ -1,5 +1,5 @@
 """Multi-host logic: 2-D (hosts, chips) mesh + a real two-process
-jax.distributed loopback run (SURVEY §4(d), §5.8; VERDICT r1 item 4).
+jax.distributed loopback run (SURVEY §4(d), §5.8).
 
 The loopback test launches TWO separate Python processes that rendezvous at
 a localhost coordinator, each contributing 4 faked CPU devices; the worker
@@ -7,7 +7,8 @@ a localhost coordinator, each contributing 4 faked CPU devices; the worker
 row-sharded renderer and one sharded train step, and checks both against
 process-local single-device references. This exercises the actual
 jax.distributed runtime — cross-process collectives over loopback sockets
-standing in for DCN — not just a faked single-process mesh."""
+standing in for the network between hosts — not just a faked
+single-process mesh."""
 
 import json
 import os
@@ -100,12 +101,11 @@ def test_two_process_loopback():
         assert info["devices"] == 8
         assert abs(info["sharded_loss"] - info["local_loss"]) < 1e-6
         assert info["step_loss"] < 1e-10
-        # the production fused custom_vjp tiers over the process-spanning
-        # mesh (r4 verdict weak #4): one train step each through
-        # fused="interpret" on scene4 and an instanced scene, matching
-        # the local single-device fused step
-        assert info["fused_loss_diff"] < 1e-6
-        assert info["fused_param_diff"] < 1e-5
+        # the kernel route over the process-spanning mesh: one train step
+        # on scene4 with the Triton kernels (interpreter) and one on an
+        # instanced scene, matching the local single-device step
+        assert info["kernel_loss_diff"] < 1e-6
+        assert info["kernel_param_diff"] < 1e-5
         assert info["instanced_loss_diff"] < 1e-6
         assert info["instanced_param_diff"] < 1e-5
-        assert info["fused_loss"] > 0 and info["instanced_loss"] > 0
+        assert info["kernel_loss"] > 0 and info["instanced_loss"] > 0

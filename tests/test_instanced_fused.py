@@ -1,14 +1,14 @@
-"""Fused instanced tier: the whole pipeline over the windowed traversal
-(render/pallas_train.make_instanced_renderer) must reproduce the banded
-jnp renderer under the same config — the r2 verdict's missing
-whole-hot-path coverage for instanced scenes."""
+"""Instanced scenes, whole pipeline: the banded render (jnp_renderer.
+render_image_banded, the path instanced scenes take at large sizes) must
+reproduce the unbanded render under every instanced config, and its
+gradients must match the unbanded path's AD."""
 
+import jax
 import numpy as np
 import pytest
 
 from loltracer_tpu.config import RenderConfig
-from loltracer_tpu.render.jnp_renderer import render_image
-from loltracer_tpu.render.pallas_train import make_instanced_renderer
+from loltracer_tpu.render.jnp_renderer import render_image, render_image_banded
 from loltracer_tpu.scenes import instanced_spheres
 
 H, W = 36, 64
@@ -20,6 +20,14 @@ def scene():
     return instanced_spheres(n=N, seed=9)
 
 
+def _banded(scene, cfg, band_rows=12):
+    return jax.jit(
+        lambda p: render_image_banded(
+            scene.structure, p, H, W, cfg, band_rows=band_rows
+        )
+    )
+
+
 @pytest.mark.parametrize(
     "cfg",
     [
@@ -28,107 +36,46 @@ def scene():
         RenderConfig(step_clamp=2.0, antialias=True),
         RenderConfig(step_clamp=2.0, shadow_grad="envelope"),
         RenderConfig(step_clamp=2.0, shadow_step_clamp=8.0),
-        RenderConfig(step_clamp=2.0, shadow_cull=False),
-        # tiny scratch: most patches overflow -> exercises the
-        # full-traversal fallback branch of the lax.cond
-        RenderConfig(step_clamp=2.0, shadow_scratch=256),
-        RenderConfig(step_clamp=2.0, shadow_scratch=0),
     ],
-    ids=["exact", "clamp", "clamp-aa", "clamp-envelope", "shadow-clamp",
-         "no-cull", "scratch-overflow", "scratch-off"],
+    ids=["exact", "clamp", "clamp-aa", "clamp-envelope", "shadow-clamp"],
 )
 def test_instanced_fused_matches_jnp(scene, cfg):
     ref = np.asarray(
-        render_image(scene.structure, scene.params, H, W, cfg)
+        jax.jit(lambda p: render_image(scene.structure, p, H, W, cfg))(
+            scene.params
+        )
     )
-    img = np.asarray(
-        make_instanced_renderer(
-            scene.structure, H, W, cfg, interpret=True
-        )(scene.params)
-    )
+    img = np.asarray(_banded(scene, cfg)(scene.params))
     np.testing.assert_allclose(img, ref, atol=1e-4)
 
 
 def test_instanced_fused_single_sphere():
-    """Degenerate block shapes (ADVICE r2 high regression, fused path)."""
+    """Degenerate block shapes: one sphere, padded to a whole SoA block."""
     scene = instanced_spheres(n=1, seed=7)
     cfg = RenderConfig(step_clamp=2.0)
     ref = np.asarray(
-        render_image(scene.structure, scene.params, H, W, cfg)
+        jax.jit(lambda p: render_image(scene.structure, p, H, W, cfg))(
+            scene.params
+        )
     )
-    img = np.asarray(
-        make_instanced_renderer(
-            scene.structure, H, W, cfg, interpret=True
-        )(scene.params)
-    )
+    img = np.asarray(_banded(scene, cfg)(scene.params))
     np.testing.assert_allclose(img, ref, atol=1e-4)
-
-
-def _penumbra_keep(scene, cfg, H, W):
-    """Mask of pixels whose gradients are penumbra-argmin independent,
-    from the fused instanced forward's own residuals (mirrors
-    tests/test_train.py _penumbra_mask)."""
-    import jax
-    import jax.numpy as jnp
-
-    from loltracer_tpu.render.pallas_march import P_H, P_W, _from_columns
-    from loltracer_tpu.render.pallas_scene import (
-        cdiv,
-        pack_instanced_spheres,
-    )
-    from loltracer_tpu.render.pallas_train import (
-        camera_pack,
-        instanced_small_fields,
-        make_instanced_fwd_call,
-    )
-
-    st = scene.structure
-    gph, gpw = cdiv(H, P_H), cdiv(W, P_W)
-    fwd = make_instanced_fwd_call(
-        st, gph * P_H, gpw * P_W, cfg, interpret=True, full_height=H,
-        with_residuals=True,
-    )
-    spheres_t, mu_b, blk_b, bbox = pack_instanced_spheres(
-        scene.params, st.material_ids
-    )
-    cam = camera_pack(scene.params, H, W, cfg)
-    args = [jnp.asarray(getattr(scene.params, f), jnp.float32)
-            for f in instanced_small_fields(st)]
-    # gather-capable calls take the finer gather-bounds table (r5)
-    from loltracer_tpu.render.pallas_scene import pack_gather_bounds
-    from loltracer_tpu.render.pallas_train import instanced_uses_scratch
-
-    gb = (pack_gather_bounds(spheres_t),) if instanced_uses_scratch(cfg) \
-        else ()
-    _, res = jax.jit(fwd)(cam, spheres_t, mu_b, blk_b, bbox, *gb, *args)
-    res = np.asarray(_from_columns(res, gph, gpw))[:, :H, :W]
-    from _penumbra import penumbra_pixels
-
-    return ~penumbra_pixels(res, st.num_lights)
 
 
 @pytest.mark.parametrize("clamp", [2.0, None], ids=["clamp", "exact"])
 def test_instanced_fused_gradients_match_banded(scene, clamp):
-    """The fused instanced custom_vjp tier's gradients (incl. sphere
-    positions/radii through the record/replay/scatter backward) match the
-    banded jnp path's AD away from penumbra-argmin near-ties."""
-    import jax
+    """Banded gradients (incl. sphere positions/radii through the per-band
+    checkpoint) match the unbanded path's AD away from penumbra-argmin
+    near-ties (tests/_penumbra.py)."""
     import jax.numpy as jnp
-
-    from loltracer_tpu.render.jnp_renderer import render_image_banded
-    from loltracer_tpu.render.pallas_train import (
-        make_instanced_training_renderer,
-    )
+    from _penumbra import penumbra_pixels, shadow_res_planes
 
     cfg = RenderConfig(
         shadow_grad="envelope", march_backend="jnp", step_clamp=clamp
     )
-    keep = _penumbra_keep(scene, cfg, H, W)[..., None].astype(np.float32)
+    keep = ~penumbra_pixels(shadow_res_planes(scene, cfg, H, W, kernel=False))
+    keep = keep[..., None].astype(np.float32)
     target = 0.5
-
-    fused = make_instanced_training_renderer(
-        scene.structure, H, W, cfg, interpret=True
-    )
 
     def grads(render_fn):
         def loss(p):
@@ -137,7 +84,9 @@ def test_instanced_fused_gradients_match_banded(scene, clamp):
 
         return jax.jit(jax.grad(loss))(scene.params)
 
-    g_f = grads(fused)
+    g_f = grads(
+        lambda p: render_image(scene.structure, p, H, W, cfg)
+    )
     g_j = grads(
         lambda p: render_image_banded(
             scene.structure, p, H, W, cfg, band_rows=8

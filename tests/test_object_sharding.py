@@ -2,7 +2,7 @@
 SoA sharded over a mesh axis with pmin-combined SDF evaluation must render
 the same image as a single device — incl. composed with row sharding on a
 2-D (rows, objects) mesh and under the step clamp (SURVEY §2.2 TP row,
-§5.7; r2 verdict missing #3)."""
+§5.7)."""
 
 import numpy as np
 import pytest
@@ -62,52 +62,9 @@ def test_object_plus_row_sharding(scene):
     np.testing.assert_allclose(img, ref, atol=2e-5)
 
 
-@pytest.mark.parametrize("clamp", [None, 2.0])
-def test_object_sharded_pallas_traversal_matches_single(scene, clamp):
-    """Object-axis sharding COMPOSED with the Pallas windowed traversal
-    (r3 verdict item 4): each device evaluates its sphere shard through
-    the instanced eval kernel (interpret on the faked mesh) and pmin-
-    combines; the render must match the single-device jnp render."""
-    cfg = RenderConfig(march_backend="pallas-interpret", step_clamp=clamp)
-    ref = np.asarray(
-        make_renderer(
-            scene.structure, H, W, RenderConfig(
-                march_backend="jnp", step_clamp=clamp
-            )
-        )(scene.params)
-    )
-    img = np.asarray(
-        make_object_sharded_renderer(
-            scene.structure, _obj_mesh(4), H, W, cfg
-        )(scene.params)
-    )
-    np.testing.assert_allclose(img, ref, atol=2e-5)
-
-
-def test_object_sharded_pallas_plus_row_sharding(scene):
-    """The Pallas-traversal object sharding composes with row sharding on
-    a 2-D (rows, objects) mesh (r3 verdict item 4 'composes with item
-    1')."""
-    devs = np.asarray(jax.devices("cpu")[:8]).reshape(2, 4)
-    mesh = Mesh(devs, ("rows", OBJ_AXIS))
-    cfg = RenderConfig(march_backend="pallas-interpret", step_clamp=2.0)
-    ref = np.asarray(
-        make_renderer(
-            scene.structure, H, W,
-            RenderConfig(march_backend="jnp", step_clamp=2.0),
-        )(scene.params)
-    )
-    img = np.asarray(
-        make_object_sharded_renderer(
-            scene.structure, mesh, H, W, cfg, row_axis="rows"
-        )(scene.params)
-    )
-    np.testing.assert_allclose(img, ref, atol=2e-5)
-
-
-@pytest.mark.parametrize("backend", ["jnp", "pallas-interpret"])
+@pytest.mark.parametrize("backend", ["jnp"])
 def test_object_sharded_respects_shadow_step_clamp(scene, backend):
-    """ADVICE r4: with a distinct shadow_step_clamp, the object-sharded
+    """With a distinct shadow_step_clamp, the object-sharded
     renderer must build a SECOND pmin SDF at the shadow clamp (the
     unsharded oracle does) instead of silently reusing the primary-clamp
     override for shadows."""
@@ -162,7 +119,7 @@ def test_render_rays_rejects_override_without_shadow_sdf(scene):
 
 
 def test_sharded_id_unclamped_argmin_where_cut_wins(scene):
-    """ADVICE r3: when the step-clamp cut wins on EVERY shard, all shards
+    """When the step-clamp cut wins on EVERY shard, all shards
     tie at d == cut; the id must still be the global unclamped sphere
     argmin (first-wins), not a min over each shard's local argmin."""
     import dataclasses

@@ -1,9 +1,9 @@
-"""Pallas kernel equivalence vs the jnp renderer (interpret mode on CPU).
-
-The Pallas renderer must agree with the vectorized jnp path — which itself
-is allclose to the float64 golden — to fp32 noise on all four example
-scenes (kernel-vs-jnp differences come only from rsqrt vs divide/sqrt and
-op ordering)."""
+"""The kernel route renders what the jnp route renders (interpret mode on
+CPU): march_backend="triton-interpret" swaps both march value passes for
+the Pallas-on-Triton kernels (render/triton_march.py) inside the same
+render path. Per-scene equality is pinned in tests/test_train.py; these
+cases cover sizes that do not divide the kernel's pixel patches, and a
+non-default loop configuration."""
 
 import numpy as np
 import pytest
@@ -11,71 +11,46 @@ import pytest
 from loltracer_tpu.config import RenderConfig
 from loltracer_tpu.lol import parse_scene_file
 from loltracer_tpu.render.jnp_renderer import make_renderer
-from loltracer_tpu.render.pallas_renderer import TILE_H, TILE_W, make_pallas_renderer
 from loltracer_tpu.scene import build_scene
 
-H, W = 16, 128  # one tile row, exercising tiling with two grid rows
+H, W = 16, 128
+
+KERNEL = "triton-interpret"
 
 
 @pytest.fixture(scope="module")
 def scenes(examples_dir):
     return {
         name: build_scene(parse_scene_file(str(examples_dir / name)))
-        for name in ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
+        for name in ["scene.lol", "scene2.lol"]
     }
 
 
-@pytest.mark.parametrize(
-    "name", ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"]
-)
-def test_pallas_matches_jnp(scenes, name):
-    scene = scenes[name]
-    ref = np.asarray(make_renderer(scene.structure, H, W)(scene.params))
-    pal = np.asarray(
-        make_pallas_renderer(scene.structure, H, W, interpret=True)(
+def _pair(scene, h, w, cfg):
+    ref = np.asarray(
+        make_renderer(scene.structure, h, w, cfg.replace(march_backend="jnp"))(
             scene.params
         )
     )
-    np.testing.assert_allclose(pal, ref, atol=5e-5)
+    pal = np.asarray(
+        make_renderer(
+            scene.structure, h, w,
+            cfg.replace(march_backend=KERNEL, shadow_grad="envelope"),
+        )(scene.params)
+    )
+    return pal, ref
 
 
 def test_pallas_nonaligned_size(scenes):
-    """Sizes that don't divide the (8, 128) tile pad internally and crop."""
-    scene = scenes["scene.lol"]
+    """Sizes that don't divide the kernel's pixel patch pad internally and
+    crop."""
     h, w = 13, 150
-    ref = np.asarray(make_renderer(scene.structure, h, w)(scene.params))
-    pal = np.asarray(
-        make_pallas_renderer(scene.structure, h, w, interpret=True)(
-            scene.params
-        )
-    )
+    pal, ref = _pair(scenes["scene.lol"], h, w, RenderConfig())
     assert pal.shape == (h, w, 3)
     np.testing.assert_allclose(pal, ref, atol=5e-5)
 
 
 def test_pallas_custom_config(scenes):
-    scene = scenes["scene2.lol"]
     cfg = RenderConfig(max_steps=64, shadow_steps=32, gamma=1.0)
-    ref = np.asarray(make_renderer(scene.structure, H, W, cfg)(scene.params))
-    pal = np.asarray(
-        make_pallas_renderer(scene.structure, H, W, cfg, interpret=True)(
-            scene.params
-        )
-    )
-    np.testing.assert_allclose(pal, ref, atol=5e-5)
-
-
-@pytest.mark.parametrize("name", ["scene.lol", "scene2.lol", "scene3.lol", "scene4.lol"])
-def test_pallas_antialias_matches_jnp(scenes, name):
-    """cfg.antialias in the fused forward (soft-coverage AA is part of the
-    ONE shared kernel since the round-3 unification; previously the
-    forward-only renderer silently ignored it — r2 verdict weak #2)."""
-    scene = scenes[name]
-    cfg = RenderConfig(antialias=True)
-    ref = np.asarray(make_renderer(scene.structure, H, W, cfg)(scene.params))
-    pal = np.asarray(
-        make_pallas_renderer(scene.structure, H, W, cfg, interpret=True)(
-            scene.params
-        )
-    )
+    pal, ref = _pair(scenes["scene2.lol"], H, W, cfg)
     np.testing.assert_allclose(pal, ref, atol=5e-5)

@@ -1,9 +1,10 @@
-"""Pallas march kernel equivalence vs the jnp while_loop march.
+"""Triton march kernel equivalence vs the jnp while_loop march.
 
 The march result is stop-gradient'd by the differentiable path, so backend
 choice must not change values (and cannot change gradients); these tests pin
 value equivalence in interpret mode on CPU, including the closest-approach
-channels the soft-coverage AA consumes."""
+channels the soft-coverage AA consumes. The step-clamp cases pin the
+instanced step-clamp semantics on the jnp path."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ from loltracer_tpu.lol import parse_scene_file
 from loltracer_tpu.render.camera import camera_rays
 from loltracer_tpu.render.jnp_renderer import make_renderer, render_image
 from loltracer_tpu.render.march import march
-from loltracer_tpu.render.pallas_march import make_pallas_march
+from loltracer_tpu.render.triton_march import make_triton_march
 from loltracer_tpu.render.sdf import make_scene_sdf
 from loltracer_tpu.scene import build_scene
 
@@ -39,7 +40,7 @@ def test_march_kernel_matches_jnp(scenes, name):
     ro, rd = camera_rays(scene.params, H, W, cfg)
     sdf = make_scene_sdf(scene.structure)
     ref = march(sdf, scene.params, ro, rd, cfg)
-    pal = make_pallas_march(scene.structure, cfg, interpret=True)(
+    pal = make_triton_march(scene.structure, cfg, interpret=True)(
         scene.params, ro, rd
     )
     np.testing.assert_allclose(pal.t, ref.t, atol=1e-4, rtol=1e-4)
@@ -62,7 +63,7 @@ def test_march_kernel_nonaligned(scenes):
     ro, rd = camera_rays(scene.params, 13, 150, cfg)
     sdf = make_scene_sdf(scene.structure)
     ref = march(sdf, scene.params, ro, rd, cfg)
-    pal = make_pallas_march(scene.structure, cfg, interpret=True)(
+    pal = make_triton_march(scene.structure, cfg, interpret=True)(
         scene.params, ro, rd
     )
     assert pal.t.shape == (13, 150)
@@ -71,7 +72,7 @@ def test_march_kernel_nonaligned(scenes):
 
 @pytest.mark.parametrize("antialias", [False, True])
 def test_render_with_pallas_march_matches(scenes, antialias):
-    """Full render via march_backend=pallas-interpret equals the default."""
+    """Full render via march_backend=triton-interpret equals the default."""
     scene = scenes["scene3.lol"]
     base = RenderConfig(antialias=antialias)
     ref = np.asarray(
@@ -80,7 +81,7 @@ def test_render_with_pallas_march_matches(scenes, antialias):
     img = np.asarray(
         render_image(
             scene.structure, scene.params, H, W,
-            base.replace(march_backend="pallas-interpret"),
+            base.replace(march_backend="triton-interpret"),
         )
     )
     np.testing.assert_allclose(img, ref, atol=5e-5)
@@ -98,7 +99,7 @@ def test_grad_with_pallas_march_matches(scenes):
 
     g_ref = jax.grad(loss)(scene.params, base)
     g_pal = jax.grad(loss)(
-        scene.params, base.replace(march_backend="pallas-interpret")
+        scene.params, base.replace(march_backend="triton-interpret")
     )
     for a, b in zip(
         jax.tree_util.tree_leaves(g_ref), jax.tree_util.tree_leaves(g_pal)
@@ -106,65 +107,6 @@ def test_grad_with_pallas_march_matches(scenes):
         np.testing.assert_allclose(
             np.asarray(b), np.asarray(a), atol=1e-4, rtol=1e-3
         )
-
-
-def test_instanced_march_kernel_matches_jnp():
-    """The instanced (VMEM sphere-block streaming) march kernel reproduces
-    the jnp instanced march, including closest-approach channels."""
-    from loltracer_tpu.scenes import instanced_spheres
-
-    scene = instanced_spheres(n=40, seed=5)
-    cfg = RenderConfig()
-    ro, rd = camera_rays(scene.params, H, W, cfg)
-    sdf = make_scene_sdf(scene.structure)
-    ref = march(sdf, scene.params, ro, rd, cfg)
-    pal = make_pallas_march(scene.structure, cfg, interpret=True)(
-        scene.params, ro, rd
-    )
-    np.testing.assert_allclose(pal.t, ref.t, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(pal.t_query, ref.t_query, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(pal.t_close, ref.t_close, atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.parametrize("n", [1, 129])
-def test_instanced_single_sphere_block_not_self_culled(n):
-    """Regression (ADVICE r2 high): a block with exactly ONE real sphere has
-    bound radius R == -S exactly, so dist-to-center - R equals the block's
-    own upper bound; a strict '<' relevance test culled such blocks against
-    themselves and the sphere silently vanished from the SDF (n == 1 gave
-    dist = inf everywhere). n = 129 puts the lone sphere in the second
-    block."""
-    from loltracer_tpu.scenes import instanced_spheres
-
-    scene = instanced_spheres(n=n, seed=7)
-    cfg = RenderConfig()
-    ro, rd = camera_rays(scene.params, H, W, cfg)
-    sdf = make_scene_sdf(scene.structure)
-    ref = march(sdf, scene.params, ro, rd, cfg)
-    pal = make_pallas_march(scene.structure, cfg, interpret=True)(
-        scene.params, ro, rd
-    )
-    np.testing.assert_allclose(pal.t, ref.t, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(pal.t_query, ref.t_query, atol=1e-4, rtol=1e-4)
-
-
-def test_instanced_step_clamp_matches_jnp():
-    """Step-clamped instanced march (config.py step_clamp): the Pallas
-    traversal's clamped distance is bitwise min(d, clamp) and must match
-    the jnp march over the clamped sdf exactly as the exact mode does."""
-    from loltracer_tpu.scenes import instanced_spheres
-
-    scene = instanced_spheres(n=300, seed=9)
-    cfg = RenderConfig(step_clamp=4.0)
-    ro, rd = camera_rays(scene.params, H, W, cfg)
-    sdf = make_scene_sdf(scene.structure, cfg.step_clamp)
-    ref = march(sdf, scene.params, ro, rd, cfg)
-    pal = make_pallas_march(scene.structure, cfg, interpret=True)(
-        scene.params, ro, rd
-    )
-    np.testing.assert_allclose(pal.t, ref.t, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(pal.t_query, ref.t_query, atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(pal.t_close, ref.t_close, atol=1e-4, rtol=1e-4)
 
 
 def test_instanced_step_clamp_same_hits_as_exact():
@@ -212,53 +154,3 @@ def test_instanced_step_clamp_render_close_to_exact():
     )
     assert np.mean(np.abs(img_c - img_e)) < 1e-4
     assert np.max(np.abs(img_c - img_e)) < 2e-2
-
-
-def test_instanced_shadow_kernel_matches_scan():
-    """The instanced frozen shadow march matches the jnp scan's (res, t*)."""
-    from jax import lax
-
-    from loltracer_tpu.render.pallas_march import make_pallas_shadow_march
-    from loltracer_tpu.scenes import instanced_spheres
-
-    scene = instanced_spheres(n=40, seed=5)
-    cfg = RenderConfig()
-    sdf = make_scene_sdf(scene.structure)
-    ro, rd = camera_rays(scene.params, H, W, cfg)
-    res = march(sdf, scene.params, ro, rd, cfg)
-    p = ro + res.t[..., None] * rd
-    to_l = scene.params.light_point[0] - p
-    ldist = jnp.sqrt(jnp.sum(to_l * to_l, -1))
-    ldir = to_l / jnp.maximum(ldist, 1e-30)[..., None]
-    sro = p + ldir * cfg.shadow_offset
-
-    def body(carry, _):
-        r, t, ts, done = carry
-        d = sdf(scene.params, sro + t[..., None] * ldir)
-        safe_t = jnp.where(t > 0, t, 1.0)
-        val = jnp.where(
-            t > 0, cfg.shadow_w * d / safe_t,
-            jnp.where(d < 0, -jnp.inf, jnp.inf),
-        )
-        better = ~done & (val < r)
-        nr = jnp.where(done, r, jnp.minimum(r, val))
-        ts = jnp.where(better, t, ts)
-        nt = jnp.where(done, t, t + d)
-        return (nr, nt, ts, done | (nr < -1) | (nt > ldist)), None
-
-    init = (
-        jnp.ones((H, W)), jnp.zeros((H, W)), jnp.zeros((H, W)),
-        jnp.zeros((H, W), bool),
-    )
-    (res_ref, _, ts_ref, _), _ = lax.scan(
-        body, init, None, length=cfg.shadow_steps
-    )
-    pr, pts = make_pallas_shadow_march(scene.structure, cfg, interpret=True)(
-        scene.params, sro, ldir, ldist
-    )
-    res_ref, ts_ref = np.asarray(res_ref), np.asarray(ts_ref)
-    pr, pts = np.asarray(pr), np.asarray(pts)
-    fin = np.isfinite(res_ref)
-    np.testing.assert_array_equal(fin, np.isfinite(pr))
-    np.testing.assert_allclose(pr[fin], res_ref[fin], atol=5e-5, rtol=1e-4)
-    np.testing.assert_allclose(pts, ts_ref, atol=5e-5, rtol=1e-4)

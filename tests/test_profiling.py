@@ -35,7 +35,7 @@ def test_max_steps_config_respected(examples_dir):
 
 def test_kernel_names_in_lowered_hlo(examples_dir):
     """SURVEY §5.1: the hot-path stages must be identifiable in profiles —
-    the TPU analog of the reference's perf-jitdump symbolization of the
+    the analog of the reference's perf-jitdump symbolization of the
     generated `sdf` (jitdump.c:93-120). jax.named_scope names survive into
     the lowered module's debug metadata, which is what xprof displays."""
     import jax

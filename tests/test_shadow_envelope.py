@@ -1,7 +1,7 @@
 """Envelope shadow-gradient estimator (config.py shadow_grad).
 
 The envelope path must (a) leave forward values bitwise unchanged, (b) have
-its Pallas frozen shadow march agree with the jnp scan, (c) compute the
+its Triton frozen shadow march agree with the jnp scan, (c) compute the
 Danskin/envelope gradient of the penumbra min — validated against central
 differences of the frozen-argmin integrand, the function the estimator is
 the exact gradient of — and (d) drive inverse rendering as well as the
@@ -24,7 +24,7 @@ from loltracer_tpu.opt import masked_optimizer
 from loltracer_tpu.render.camera import camera_rays
 from loltracer_tpu.render.jnp_renderer import make_renderer, render_image
 from loltracer_tpu.render.march import march
-from loltracer_tpu.render.pallas_march import make_pallas_shadow_march
+from loltracer_tpu.render.triton_march import make_triton_shadow_march
 from loltracer_tpu.render.sdf import make_scene_sdf
 from loltracer_tpu.render.shading import soft_shadow
 from loltracer_tpu.scene import build_scene
@@ -71,7 +71,7 @@ def test_forward_identical(scenes, name):
 
 @pytest.mark.parametrize("name", ALL)
 def test_pallas_shadow_march_matches_scan(scenes, name):
-    """The Pallas frozen shadow march reproduces the jnp scan's (res, t*)."""
+    """The Triton frozen shadow march reproduces the jnp scan's (res, t*)."""
     scene = scenes[name]
     cfg = RenderConfig()
     sdf, sro, ldir, ldist = _shadow_rays(scene, cfg)
@@ -98,7 +98,7 @@ def test_pallas_shadow_march_matches_scan(scenes, name):
     (res_ref, _, ts_ref, _), _ = lax.scan(
         body, init, None, length=cfg.shadow_steps
     )
-    pr, pts = make_pallas_shadow_march(scene.structure, cfg, interpret=True)(
+    pr, pts = make_triton_shadow_march(scene.structure, cfg, interpret=True)(
         scene.params, sro, ldir, ldist
     )
     res_ref, ts_ref = np.asarray(res_ref), np.asarray(ts_ref)
@@ -135,7 +135,7 @@ def test_envelope_gradient_is_danskin(scenes):
     assert interior.sum() > 20, "fixture must exercise the penumbra"
 
     # recover the frozen argmin t* exactly as the estimator does
-    _, t_star = make_pallas_shadow_march(scene.structure, cfg, interpret=True)(
+    _, t_star = make_triton_shadow_march(scene.structure, cfg, interpret=True)(
         scene.params, sro, ldir, ldist
     )
     t_star = jnp.asarray(np.asarray(t_star))
@@ -192,7 +192,7 @@ def test_inverse_rendering_with_envelope(scenes):
 
 def test_envelope_grad_with_pallas_interpret(scenes):
     """Full-render envelope gradients agree between the jnp frozen scan and
-    the Pallas shadow kernel. Frozen values differ by float ulps, which can
+    the Triton shadow kernel. Frozen values differ by float ulps, which can
     flip the shadow argmin step on near-tied lanes (a discontinuous O(1)
     per-lane gradient change), so tolerances are per-leaf aggregate, not
     elementwise-tight."""
@@ -205,7 +205,7 @@ def test_envelope_grad_with_pallas_interpret(scenes):
 
     g_ref = jax.grad(loss)(scene.params, base)
     g_pal = jax.grad(loss)(
-        scene.params, base.replace(march_backend="pallas-interpret")
+        scene.params, base.replace(march_backend="triton-interpret")
     )
     for a, b in zip(
         jax.tree_util.tree_leaves(g_ref), jax.tree_util.tree_leaves(g_pal)

@@ -1,10 +1,12 @@
-"""Fused Pallas training tier (render/pallas_train.py) equivalence tests.
+"""Kernel route versus jnp route for training (render/triton_march.py).
 
-The fused forward must match the jnp renderer pixel-for-pixel (same math,
-same frozen-value semantics), and the custom_vjp gradients must match the
-jnp path's AD (both use the IFT + Danskin-envelope + coverage estimator, so
-agreement is to float tolerance, not merely statistical). Runs the kernels
-in the Pallas interpreter on CPU; the same code compiles on TPU."""
+With march_backend="triton-interpret" both march value passes (primary and
+envelope shadow) run as the Triton kernels in the Pallas interpreter; the
+rest of render_rays, and every gradient, is the same jnp code on both
+routes (IFT + Danskin-envelope + coverage re-attachment). So the forward
+must match the jnp route pixel for pixel and the gradients to float
+tolerance, away from the penumbra near-ties of tests/_penumbra.py. The
+same kernels compile for the GPU (chip_smoke.py runs them there)."""
 
 import dataclasses
 
@@ -16,10 +18,9 @@ import pytest
 from loltracer_tpu.config import RenderConfig
 from loltracer_tpu.lol import parse_scene_file
 from loltracer_tpu.render.jnp_renderer import render_image
-from loltracer_tpu.render.pallas_train import make_training_renderer
 from loltracer_tpu.scene import build_scene
 
-H, W = 16, 144  # non-multiple of 128 => exercises tile padding
+H, W = 16, 144  # 144 = 9 x 16-wide patches; odd patch counts per row
 
 CFG = RenderConfig(shadow_grad="envelope", march_backend="jnp")
 CFG_AA = dataclasses.replace(CFG, antialias=True)
@@ -41,20 +42,22 @@ def _jnp_image(scene, cfg):
     return f
 
 
+def make_kernel_renderer(structure, h, w, cfg):
+    """The render path with both march value passes on the kernel route."""
+    kcfg = cfg.replace(march_backend="triton-interpret")
+    return lambda p: render_image(structure, p, h, w, kcfg)
+
+
 def test_forward_matches_jnp(scene):
-    fused = make_training_renderer(
-        scene.structure, H, W, CFG, interpret=True
-    )
-    a = np.asarray(fused(scene.params))
+    kern = jax.jit(make_kernel_renderer(scene.structure, H, W, CFG))
+    a = np.asarray(kern(scene.params))
     b = np.asarray(_jnp_image(scene, CFG)(scene.params))
     np.testing.assert_allclose(a, b, atol=5e-5, rtol=0)
 
 
 def test_forward_matches_jnp_aa(scene):
-    fused = make_training_renderer(
-        scene.structure, H, W, CFG_AA, interpret=True
-    )
-    a = np.asarray(fused(scene.params))
+    kern = jax.jit(make_kernel_renderer(scene.structure, H, W, CFG_AA))
+    a = np.asarray(kern(scene.params))
     b = np.asarray(_jnp_image(scene, CFG_AA)(scene.params))
     np.testing.assert_allclose(a, b, atol=5e-5, rtol=0)
 
@@ -79,34 +82,20 @@ GEOM_FIELDS_T = (
 )
 
 
-def _fused_residuals(scene, cfg):
-    """The fused forward's residual planes, [R, H, W]."""
-    from loltracer_tpu.render.pallas_scene import active_fields
-    from loltracer_tpu.render.pallas_train import camera_pack, make_fwd_call
-
-    st = scene.structure
-    fields = active_fields(st)
-    fwd = make_fwd_call(st, H, W, cfg, interpret=True)
-    cam = camera_pack(scene.params, H, W, cfg)
-    args = [jnp.asarray(getattr(scene.params, f), jnp.float32) for f in fields]
-    _, res = jax.jit(fwd)(cam, *args)
-    return np.asarray(res)[:, :H, :W]
-
-
 def _penumbra_mask(scene, cfg):
-    """True where the fused-vs-jnp comparison must be tight: everywhere
+    """True where the kernel-vs-jnp comparison must be tight: everywhere
     except the penumbra-argmin-dependent pixels. The band definition (and
     why those pixels legitimately diverge) lives in tests/_penumbra.py —
     ONE definition shared with test_instanced_fused."""
-    from _penumbra import penumbra_pixels
+    from _penumbra import penumbra_pixels, shadow_res_planes
 
-    res = _fused_residuals(scene, cfg)
-    return ~penumbra_pixels(res, scene.structure.num_lights)
+    res = shadow_res_planes(scene, cfg, H, W, kernel=True)
+    return ~penumbra_pixels(res)
 
 
 @pytest.mark.parametrize("cfg", [CFG, CFG_AA], ids=["parity", "aa"])
 def test_gradients_match_jnp(scene, cfg):
-    fused = make_training_renderer(scene.structure, H, W, cfg, interpret=True)
+    kern = make_kernel_renderer(scene.structure, H, W, cfg)
     # a target distinct from the render so cotangents are nonzero; penumbra
     # pixels masked out of the loss (see _penumbra_mask)
     keep = _penumbra_mask(scene, cfg)[..., None].astype(np.float32)
@@ -119,13 +108,13 @@ def test_gradients_match_jnp(scene, cfg):
 
         return jax.jit(jax.grad(loss))(scene.params)
 
-    g_fused = masked_grads(fused)
+    g_kern = masked_grads(kern)
     g_jnp = masked_grads(
         lambda p: render_image(scene.structure, p, H, W, cfg)
     )
 
     for f in SMOOTH_FIELDS + GEOM_FIELDS_T:
-        a = np.asarray(getattr(g_fused, f))
+        a = np.asarray(getattr(g_kern, f))
         b = np.asarray(getattr(g_jnp, f))
         if a.size == 0:
             continue
@@ -139,7 +128,7 @@ def test_gradients_match_jnp(scene, cfg):
 @pytest.mark.parametrize("cfg", [CFG, CFG_AA], ids=["parity", "aa"])
 def test_gradient_full_image_bound(scene, cfg):
     """Quantified FULL-IMAGE gradient bound, magnitude included, cam_fov
-    included, no field exclusions (r3 verdict weak #5). The loss is
+    included, no field exclusions. The loss is
     additive over pixels, so per field and path
 
         g_full = g_band + g_nonband          (exactly, by linearity)
@@ -148,7 +137,7 @@ def test_gradient_full_image_bound(scene, cfg):
     asserts the two halves of the derivable full-image bound:
 
     1. NON-BAND divergence is tight (<= 5% of the gradient scale): every
-       fused-vs-jnp divergence source lives inside the penumbra band.
+       kernel-vs-jnp divergence source lives inside the penumbra band.
        This covers cam_fov under AA — its full-image total is a
        near-cancelling sum whose unmasked rel-L2 is unbounded in
        principle (|total| can be ~1e-4 of the per-pixel terms), but its
@@ -160,7 +149,7 @@ def test_gradient_full_image_bound(scene, cfg):
        is small relative to the full gradient this collapses to a tight
        full-image rel-L2; where it is not, the band term is the bound.
     """
-    fused = make_training_renderer(scene.structure, H, W, cfg, interpret=True)
+    kern = make_kernel_renderer(scene.structure, H, W, cfg)
     target = 0.5 * np.ones((H, W, 3), np.float32)
     pen = ~_penumbra_mask(scene, cfg)  # True ON the band
     band = jnp.asarray(pen[..., None].astype(np.float32))
@@ -173,9 +162,9 @@ def test_gradient_full_image_bound(scene, cfg):
         return jax.jit(jax.grad(loss))(scene.params)
 
     jnp_fn = lambda p: render_image(scene.structure, p, H, W, cfg)
-    g_full_f = grads(fused, 1.0)
+    g_full_f = grads(kern, 1.0)
     g_full_j = grads(jnp_fn, 1.0)
-    g_band_f = grads(fused, band)
+    g_band_f = grads(kern, band)
     g_band_j = grads(jnp_fn, band)
 
     for f in GEOM_FIELDS_T:
@@ -198,89 +187,8 @@ def test_gradient_full_image_bound(scene, cfg):
         )
 
 
-def test_bwd_kernel_matches_out_of_kernel_vjp(scene):
-    """Kernel mechanics, pinned exactly: feed the backward kernel and a plain
-    out-of-kernel jax.vjp of _shade_from_frozen the SAME residuals (from the
-    fused forward) and the same cotangent — the accumulated parameter
-    gradients must agree to float tolerance on every field, including the
-    argmin-sensitive geometry ones."""
-    import loltracer_tpu.render.pallas_train as PT
-    from loltracer_tpu.render.pallas_scene import (
-        ScalarScene,
-        active_fields,
-        array_param_values,
-        cdiv,
-    )
-
-    st, params = scene.structure, scene.params
-    cfg = CFG_AA
-    fields = active_fields(st)
-    gh, gw = cdiv(H, 8), cdiv(W, 128)
-    ph, pw = gh * 8, gw * 128
-
-    fwd = PT.make_fwd_call(st, H, W, cfg, interpret=True)
-    bwd = PT.make_bwd_call(st, H, W, cfg, interpret=True)
-    cam = PT.camera_pack(params, H, W, cfg)
-    args = [jnp.asarray(getattr(params, f), jnp.float32) for f in fields]
-    _, res = jax.jit(fwd)(cam, *args)
-
-    rng = np.random.RandomState(0)
-    ct = rng.uniform(-1, 1, (3, ph, pw)).astype(np.float32)
-    ct[:, H:, :] = 0.0
-    ct[:, :, W:] = 0.0
-
-    outs = jax.jit(bwd)(cam, *args, res, jnp.asarray(ct))
-    dcam_k, dfields_k = np.asarray(outs[0]), [np.asarray(o) for o in outs[1:]]
-
-    # out-of-kernel vjp over the same tiles
-    nl = st.num_lights
-
-    def total(values, camt):
-        scn = ScalarScene(st, values)
-        acc = 0.0
-        for ti in range(gh):
-            for tj in range(gw):
-                sl = (slice(ti * 8, ti * 8 + 8), slice(tj * 128, tj * 128 + 128))
-                r, g, b = PT._shade_from_frozen(
-                    st, cfg, scn, camt,
-                    res[0][sl], res[1][sl], res[2][sl], res[3][sl],
-                    [res[4 + 2 * l][sl] for l in range(nl)],
-                    [res[5 + 2 * l][sl] for l in range(nl)],
-                    lambda c, ti=ti, tj=tj: PT._rays_from_cam(c, H, W, ti, tj),
-                )
-                acc = acc + jnp.sum(r * ct[0][sl]) + jnp.sum(
-                    g * ct[1][sl]
-                ) + jnp.sum(b * ct[2][sl])
-        return acc
-
-    values = array_param_values(st, params, fields)
-    camt = tuple(cam[i] for i in range(PT.CAM_SIZE))
-    dvals, dcam = jax.jit(jax.grad(total, argnums=(0, 1)))(values, camt)
-
-    # rtol 2e-3: the kernel accumulates per tile in SMEM while the reference
-    # formulation grads one global sum — different f32 summation orders on
-    # partially-cancelling camera totals
-    np.testing.assert_allclose(
-        dcam_k, np.asarray(dcam), rtol=2e-3, atol=1e-5 * max(
-            1.0, np.abs(np.asarray(dcam)).max()
-        ),
-    )
-    def nested_to_array(v):
-        if isinstance(v[0], tuple):
-            return np.asarray([[float(x) for x in row] for row in v],
-                              np.float32)
-        return np.asarray([float(x) for x in v], np.float32)
-
-    for f, gk in zip(fields, dfields_k):
-        gv = nested_to_array(dvals[f])
-        scale = max(np.abs(gv).max(), 1e-6)
-        np.testing.assert_allclose(
-            gk, gv.reshape(gk.shape), atol=1e-4 * scale, rtol=0, err_msg=f
-        )
-
-
 def test_fused_loss_decreases_under_adam(examples_dir):
-    """End-to-end: one can actually train through the fused tier. Image-plane
+    """End-to-end: one can actually train through the kernel route. Image-plane
     sphere positions are perturbed and are the only trainable field (the
     observable configuration the slow inverse tests establish for the jnp
     path, tests/test_inverse.py)."""
@@ -289,9 +197,8 @@ def test_fused_loss_decreases_under_adam(examples_dir):
     from loltracer_tpu.opt import masked_optimizer
 
     scene = build_scene(parse_scene_file(str(examples_dir / "scene3.lol")))
-    fused = make_training_renderer(scene.structure, 24, 128, CFG_AA,
-                                   interpret=True)
-    target = np.asarray(fused(scene.params))
+    kern = make_kernel_renderer(scene.structure, 24, 128, CFG_AA)
+    target = np.asarray(jax.jit(kern)(scene.params))
 
     delta = np.zeros_like(scene.params.sphere_point)
     delta[:, 0] = 0.15
@@ -305,7 +212,7 @@ def test_fused_loss_decreases_under_adam(examples_dir):
     @jax.jit
     def step(params, state):
         def loss(p):
-            return jnp.mean((fused(p) - target) ** 2)
+            return jnp.mean((kern(p) - target) ** 2)
 
         l, g = jax.value_and_grad(loss)(params)
         updates, state2 = opt.update(g, state, params)
@@ -322,36 +229,24 @@ def test_fused_loss_decreases_under_adam(examples_dir):
 @pytest.mark.parametrize("name", ["scene3.lol", "scene4.lol"])
 def test_penumbra_estimator_variance_bounded(examples_dir, name):
     """Quantified bound on the penumbra-pixel divergence that
-    test_gradients_match_jnp masks out (r2 verdict weak #5/#8): restrict
-    the loss to the penumbra BAND itself and compare fused-vs-jnp envelope
-    gradients. Both compute the same Danskin estimator; they differ only
+    test_gradients_match_jnp masks out: restrict the loss to the penumbra
+    BAND itself and compare kernel-vs-jnp envelope gradients. Both compute the same Danskin estimator; they differ only
     in WHICH near-tied shadow step the frozen march picks as argmin, an
-    O(1)-per-pixel variance that largely cancels over the band. Measured
-    (16x144, these scenes): cosine >= 0.96 and relative L2 <= 0.64 on
-    every geometric field; asserted with margin at cos >= 0.9 / rel <= 1.0
-    — i.e. even on ONLY the near-tie pixels the estimators agree in
+    O(1)-per-pixel variance that largely cancels over the band. Asserted
+    at cos >= 0.9 / rel <= 1.0 — i.e. even on ONLY the near-tie pixels the estimators agree in
     direction and to ~1x in magnitude (full-image totals are dominated by
     non-penumbra pixels, which match to 2e-2, see
     test_gradients_match_jnp)."""
-    from loltracer_tpu.render.pallas_scene import active_fields
-    from loltracer_tpu.render.pallas_train import camera_pack, make_fwd_call
+    from _penumbra import penumbra_pixels, shadow_res_planes
 
     scene = build_scene(parse_scene_file(str(examples_dir / name)))
     st = scene.structure
     cfg = CFG
-    fields = active_fields(st)
-    fwd = make_fwd_call(st, H, W, cfg, interpret=True)
-    cam = camera_pack(scene.params, H, W, cfg)
-    args = [jnp.asarray(getattr(scene.params, f), jnp.float32) for f in fields]
-    _, res = jax.jit(fwd)(cam, *args)
-    res = np.asarray(res)[:, :H, :W]
-    from _penumbra import penumbra_pixels
-
-    pen = penumbra_pixels(res, st.num_lights)
+    pen = penumbra_pixels(shadow_res_planes(scene, cfg, H, W, kernel=True))
     assert pen.sum() > 0
     keep = jnp.asarray(pen[..., None].astype(np.float32))
 
-    fused = make_training_renderer(st, H, W, cfg, interpret=True)
+    kern = make_kernel_renderer(st, H, W, cfg)
 
     def grads(rf):
         def loss(p):
@@ -360,7 +255,7 @@ def test_penumbra_estimator_variance_bounded(examples_dir, name):
 
         return jax.jit(jax.grad(loss))(scene.params)
 
-    g_f = grads(fused)
+    g_f = grads(kern)
     g_j = grads(lambda p: render_image(st, p, H, W, cfg))
     for f in ("light_point", "sphere_point", "plane_y", "smooth_k"):
         a = np.asarray(getattr(g_f, f)).ravel()
